@@ -1,0 +1,165 @@
+"""The language model: embeddings + layer stack + head, serving entry points.
+
+``LM`` is an ``nn.Module`` that holds the weights; its step methods take the
+parameter tree explicitly, as the JAX package's do, so the engine and the
+tests can hand it weights from :meth:`LM.init`, :meth:`LM.load_params` or
+the JAX bridge alike.  The tree is::
+
+    {"embed": (Vp, d), "unembed": (d, Vp), "final_norm": {"scale"},
+     "layers": [{"norm_mixer", "mixer", "norm_ffn", "mlp"}, ...]}
+
+with every projection stored ``(d_in, d_out)`` and applied as ``x @ W``, the
+JAX package's layout.  Entry points: ``init_caches``, ``prefill_packed`` and
+``decode_step_slots``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.blocks import (
+    init_layer_cache,
+    layer_forward,
+    make_layer_params,
+    stack_plan,
+)
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import apply_norm, dense_init, make_norm_params
+
+Params = dict[str, Any]
+
+VOCAB_ALIGN = 256  # the JAX package pads the vocab so TP=16 divides it
+
+
+def padded_vocab(vocab: int) -> int:
+    return (vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN * VOCAB_ALIGN
+
+
+def _frozen(group: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in group.items()})
+
+
+class LM(nn.Module):
+    """Decoder LM on one device: CUDA unless ``device="cpu"`` is asked for."""
+
+    def __init__(self, cfg: ArchConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        self.plan = stack_plan(cfg)
+        if cfg.attn_impl not in ("xla", "flash", "auto"):
+            raise ValueError(f"attn_impl {cfg.attn_impl!r} not in ('xla', 'flash', 'auto')")
+        if cfg.attn_grid not in ("dense", "pruned", "auto"):
+            raise ValueError(f"attn_grid {cfg.attn_grid!r} not in ('dense', 'pruned', 'auto')")
+
+    # -- weights ---------------------------------------------------------------
+    def init(self, generator: torch.Generator | None = None) -> Params:
+        """Random weights (truncated normal, σ = 1/√d_in; norms at 1) drawn
+        from ``generator`` on the model's device; returns the tree."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        vp = padded_vocab(cfg.vocab_size)
+        return self.load_params({
+            "final_norm": make_norm_params(cfg, dt, dev),
+            "embed": dense_init(generator, vp, cfg.d_model, dt, dev),
+            "unembed": dense_init(generator, cfg.d_model, vp, dt, dev),
+            "layers": [make_layer_params(generator, cfg, dt, dev) for _ in range(cfg.n_layers)],
+        })
+
+    def load_params(self, params: Params) -> Params:
+        """Hold ``params`` (tensors on the model's device) as this module's
+        weights; returns the tree view of them."""
+        vp = padded_vocab(self.cfg.vocab_size)
+        if tuple(params["embed"].shape) != (vp, self.cfg.d_model):
+            raise ValueError(f"embed shape {tuple(params['embed'].shape)} != {(vp, self.cfg.d_model)}")
+        if len(params["layers"]) != self.cfg.n_layers:
+            raise ValueError(f"{len(params['layers'])} layers != n_layers {self.cfg.n_layers}")
+        if params["embed"].device != self.device:
+            raise ValueError(f"params on {params['embed'].device}, model on {self.device}")
+        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.unembed = nn.Parameter(params["unembed"], requires_grad=False)
+        self.final_norm = _frozen(params["final_norm"])
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({name: _frozen(group) for name, group in layer.items()})
+            for layer in params["layers"]
+        )
+        return self.params
+
+    @property
+    def params(self) -> Params:
+        return {
+            "embed": self.embed,
+            "unembed": self.unembed,
+            "final_norm": dict(self.final_norm),
+            "layers": [
+                {name: dict(group) for name, group in layer.items()} for layer in self.layers
+            ],
+        }
+
+    # -- stack ------------------------------------------------------------------
+    def _run_stack(self, params, x, positions, segments, caches, cache_index, dest_slot=None):
+        new_caches = []
+        for layer_params, cache in zip(params["layers"], caches):
+            x, cache = layer_forward(
+                layer_params, x, self.cfg, positions, segments, cache, cache_index,
+                dest_slot=dest_slot,
+            )
+            new_caches.append(cache)
+        return x, new_caches
+
+    def _logits(self, params, x) -> torch.Tensor:
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        return (x @ params["unembed"]).float()
+
+    # -- serving ------------------------------------------------------------------
+    def init_caches(self, batch: int, max_len: int) -> list:
+        return [
+            init_layer_cache(self.cfg, batch, max_len, self.dtype, self.device)
+            for _ in range(self.cfg.n_layers)
+        ]
+
+    def prefill_packed(
+        self,
+        params: Params,
+        caches: list,
+        tokens: torch.Tensor,  # (R, S) packed-segment stream
+        positions: torch.Tensor,  # (R, S) within-segment positions
+        segments: torch.Tensor,  # (R, S) 0 = padding, >=1 per request
+        dest_slot: torch.Tensor,  # (R, S) cache row per stream position
+    ):
+        """Packed-segment prefill scattering K/V into per-request cache slots.
+
+        Several admitted prompts share one packed stream; each layer's roped
+        K/V lands in the cache row named by ``dest_slot`` at its
+        within-segment position (padding points out of range and is
+        dropped).  Returns the full-stream fp32 logits and the caches.
+        """
+        x = params["embed"][tokens]
+        x, caches = self._run_stack(
+            params, x, positions, segments, caches, None, dest_slot=dest_slot
+        )
+        return self._logits(params, x), caches
+
+    def decode_step_slots(
+        self,
+        params: Params,
+        caches: list,
+        tokens: torch.Tensor,  # (B, 1) — one pending token per cache slot
+        lengths: torch.Tensor,  # (B,) int32: per-slot tokens already cached
+    ):
+        """One decode step against per-slot cache frontiers: every slot sits
+        at its own depth ``lengths[i]``, so admission and eviction never
+        change the step's shape."""
+        s = tokens.shape[1]
+        x = params["embed"][tokens]
+        positions = lengths.to(torch.int32)[:, None] + torch.arange(
+            s, dtype=torch.int32, device=tokens.device
+        )
+        x, caches = self._run_stack(params, x, positions, None, caches, lengths)
+        return self._logits(params, x), caches
