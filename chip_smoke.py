@@ -3,36 +3,58 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in the checkout, then runs:
+Builds the CUDA kernels from the sources in the checkout (one ``nvcc`` per
+source, in parallel), then runs:
 
-1. device   — the card's name and power limit (``nvidia-smi``), device count;
-2. parity   — the dense kernel (K1) and the pruned kernel (K4) at the serving
-              shapes, (rows, capacity) in {(1,64), (2,128), (6,128), (8,256)}
-              with 16 q heads over 8 kv heads, d_head 128, held against the
-              plain PyTorch version on valid rows (bf16: atol = rtol = 2e-2;
-              fp32: 2e-5; lse in fp32 at 2e-5), K4 against K1 with
-              ``torch.equal``, and the liveness tables built on the card
-              against the same tables built on the CPU;
-3. serving  — ``ContinuousBatchingEngine`` on full-width Qwen3-0.6B in bf16
-              (random weights from seed 0) with the launcher's defaults; every
-              request must finish, K4 must launch 28 times per prefill call and
-              K1 never; the same trace on the dense kernel must give the
-              identical ids; the first prefill's picked logits on the kernel
-              route are held against the plain route's; ``torch.profiler``
-              reads the card's busy share over the first eight ticks;
-4. times    — K1, K4, the plain version and ``scaled_dot_product_attention``
-              (a yardstick only: the port never calls it) at each shape;
-5. kernels  — one JSON line with every ported kernel.
+1. device    — the card's name and power limit (``nvidia-smi``), device count;
+2. parity    — the forward kernels, dense (K1) and pruned (K4), at the serving
+               shapes, (rows, capacity) in {(1,64), (2,128), (6,128), (8,256)}
+               with 16 q heads over 8 kv heads, d_head 128, held against the
+               plain PyTorch version on valid rows (bf16: atol = rtol = 2e-2;
+               fp32: 2e-5; lse in fp32 at 2e-5), K4 against K1 with
+               ``torch.equal``, and the liveness tables built on the card
+               against the same tables built on the CPU;
+3. backward  — the four backward kernels, dQ and dK/dV of the dense (K2, K3)
+               and pruned (K5, K6) grids, at the serving shapes, at the first
+               training step's packed shape and at S = 200 (block 40), in bf16
+               and fp32: each against the plain backward on valid rows at the
+               tolerances above, K5 == K2 and K6 == K3 with ``torch.equal``,
+               and exactly zero gradients on all-padding rows;
+4. serving   — ``ContinuousBatchingEngine`` on full-width Qwen3-0.6B in bf16
+               (random weights from seed 0) with the launcher's defaults; every
+               request must finish, K4 must launch 28 times per prefill call and
+               K1 never; the same trace on the dense kernel must give the
+               identical ids; the first prefill's picked logits on the kernel
+               route are held against the plain route's; ``torch.profiler``
+               reads the card's busy share over the first eight ticks;
+5. training  — ``Trainer`` on full-width Qwen3-0.6B in bf16 (random weights
+               from seed 0) through the train launcher's data path
+               (``--layout packed --world 2 --l-max 4096``, TRAIN_STEPS steps):
+               finite loss and grad_norm every step, per step K4 launched
+               2 x 28 times (remat recomputes the forward), K5 and K6 28 times,
+               K1-K3 never; the same steps on ``attn_grid="dense"`` launch K1
+               2 x 28, K2 and K3 28 times per step, K4-K6 never, and give the
+               same per-step losses within LOSS_RTOL; tokens/s, step time and
+               peak memory, and ``torch.profiler``'s busy share over two steps;
+6. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+               training step's shape: the kernel, the plain version,
+               ``scaled_dot_product_attention`` and its backward with the same
+               boolean mask (a yardstick only: the port never calls it), and
+               the bound;
+7. kernels   — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
-needs a CUDA device and the repository around it.
+needs a CUDA device and the repository around it.  It pins PYTHONHASHSEED
+to 0 (re-executing itself once) because the data path's synthetic dataset
+hashes tuples, so the training shapes are the same in every run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -46,16 +68,31 @@ HEADS, KV_HEADS, D_HEAD = 16, 8, 128
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-KERNELS = {
-    "segment_flash_attention": dict(
-        source="src/repro_torch/kernels/csrc/flash_fwd.cu",
-        replaces="src/repro/kernels/flash_attention.py:211",
-    ),
-    "segment_flash_attention_pruned": dict(
-        source="src/repro_torch/kernels/csrc/flash_fwd.cu",
-        replaces="src/repro/kernels/flash_attention.py:622",
-    ),
+# The training run: the train launcher's flags.  Two ranks at l_max 4096
+# give steps of at most 2 x 6144 token slots: the fp32 logits (~7.5 GB a
+# copy, ~3 copies at the backward's peak) beside ~7 GB of bf16 weights,
+# gradients and fp32 moments.
+TRAIN_STEPS = 4
+TRAIN_ARGS = ["--arch", "qwen3_0_6b", "--layout", "packed", "--world", "2", "--l-max", "4096",
+              "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+# Per-step losses of the dense and pruned routes: the kernels of the two
+# routes are bit-exact pairs, so only the order of atomic adds outside them
+# (the embedding gradient) differs; bf16 weights.
+LOSS_RTOL = 1e-2
+FWD = "src/repro_torch/kernels/csrc/flash_fwd.cu"
+BWD = "src/repro_torch/kernels/csrc/flash_bwd.cu"
+REPLACES = "src/repro/kernels/flash_attention.py"
+KERNELS = {  # name -> (source, TPU kernel it replaces, grid, C entry point)
+    "segment_flash_attention": (FWD, f"{REPLACES}:211", "dense", None),
+    "segment_flash_attention_pruned": (FWD, f"{REPLACES}:622", "pruned", None),
+    "segment_flash_attention_bwd_dq": (BWD, f"{REPLACES}:485", "dense", "flash_bwd_dq_dense"),
+    "segment_flash_attention_bwd_dkv": (BWD, f"{REPLACES}:522", "dense", "flash_bwd_dkv_dense"),
+    "segment_flash_attention_bwd_pruned_dq": (BWD, f"{REPLACES}:881", "pruned", "flash_bwd_dq_pruned"),
+    "segment_flash_attention_bwd_pruned_dkv": (BWD, f"{REPLACES}:933", "pruned",
+                                               "flash_bwd_dkv_pruned"),
 }
+BWD_PAIRS = (("segment_flash_attention_bwd_dq", "segment_flash_attention_bwd_pruned_dq"),
+             ("segment_flash_attention_bwd_dkv", "segment_flash_attention_bwd_pruned_dkv"))
 
 
 def check(ok: bool, what: str) -> None:
@@ -117,16 +154,17 @@ def phase_build():
                 print(f"[build] {line.strip()}")
 
 
-def make_case(rng, rows, cap, dtype):
+def make_case(rng, seg, dtype):
+    """q, k, v from the seed for the (rows, cap) numpy segment ids ``seg``."""
     import numpy as np
     import torch
 
-    seg = torch.from_numpy(packed_segments(rng, rows, cap)).cuda()
+    rows, cap = seg.shape
     qkv = [
         torch.from_numpy(rng.standard_normal((rows, cap, n, D_HEAD), dtype=np.float32)).to("cuda", dtype)
         for n in (HEADS, KV_HEADS, KV_HEADS)
     ]
-    return (*qkv, seg)
+    return (*qkv, torch.from_numpy(seg).cuda())
 
 
 def phase_parity(rng):
@@ -136,11 +174,11 @@ def phase_parity(rng):
     from repro_torch.kernels.liveness import build_liveness_tables
     from repro_torch.kernels.ref import segment_flash_attention_ref
 
-    max_err = {name: 0.0 for name in KERNELS}
+    max_err = {"segment_flash_attention": 0.0, "segment_flash_attention_pruned": 0.0}
     for rows, cap in SHAPES:
         blk = fa.select_block(cap, 128)
         for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            q, k, v, seg = make_case(rng, rows, cap, dtype)
+            q, k, v, seg = make_case(rng, packed_segments(rng, rows, cap), dtype)
             kw = dict(block_q=blk, block_kv=blk, return_lse=True)
             o1, l1 = fa.segment_flash_attention(q, k, v, seg, **kw)
             o4, l4 = fa.segment_flash_attention_pruned(q, k, v, seg, **kw)
@@ -172,6 +210,75 @@ def phase_parity(rng):
     return max_err
 
 
+def training_segments():
+    """The segment ids of the training run's first step, from the train
+    launcher's data path (no model weights are made)."""
+    from repro_torch.core.layout import global_batch_arrays
+    from repro_torch.launch import train as train_launcher
+
+    _, loader = train_launcher.build(train_launcher.parser().parse_args(TRAIN_ARGS))
+    first = next(iter(loader.epoch(0)))
+    return global_batch_arrays(first.batches, loader.layout)["segments"]
+
+
+def bwd_case(rng, seg, dtype):
+    """Inputs of one backward call: q, k, v, seg, and the forward's out and
+    lse (from K1), and a cotangent do."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, seg_t = make_case(rng, seg, dtype)
+    blk = fa.select_block(seg.shape[1], 128)
+    out, lse = fa.segment_flash_attention(q, k, v, seg_t, block_q=blk, block_kv=blk, return_lse=True)
+    do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to("cuda", dtype)
+    return (q, k, v, seg_t, out, lse, do), blk
+
+
+def phase_backward(rng, train_seg):
+    """K2/K3 and K5/K6 against the plain backward, the two bit-exact pairs,
+    and exactly zero gradients on all-padding rows."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import segment_flash_attention_bwd_ref
+
+    max_err = {name: 0.0 for pair in BWD_PAIRS for name in pair}
+    cases = [packed_segments(rng, rows, cap) for rows, cap in SHAPES]
+    cases += [train_seg, packed_segments(rng, 3, 200)]  # the training step; block 40
+    for seg_np in cases:
+        rows, cap = seg_np.shape
+        for tname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            args, blk = bwd_case(rng, seg_np, dtype)
+            kw = dict(block_q=blk, block_kv=blk)
+            dense = fa.segment_flash_attention_bwd(*args, **kw)
+            pruned = fa.segment_flash_attention_bwd_pruned(*args, **kw)
+            plain = segment_flash_attention_bwd_ref(*args)
+            torch.cuda.synchronize()
+            valid, tol = args[3] > 0, TOL[tname]
+            # The dQ pass writes dq, the dK/dV pass dk and dv.
+            for (dense_name, pruned_name), outputs in zip(BWD_PAIRS, ((0,), (1, 2))):
+                errs = []
+                for i in outputs:
+                    a, b, ref = dense[i], pruned[i], plain[i]
+                    check(torch.equal(a, b), f"{pruned_name} not bit-exact vs {dense_name} "
+                                             f"at {(rows, cap)} {tname}")
+                    check(bool(torch.all(a[~valid] == 0)),
+                          f"{dense_name} output {i} not zero on padding rows at {(rows, cap)} {tname}")
+                    ok = torch.allclose(a[valid].float(), ref[valid].float(), atol=tol, rtol=tol)
+                    errs.append((a[valid].float() - ref[valid].float()).abs().max().item())
+                    check(ok, f"{dense_name} output {i} vs plain at {(rows, cap)} {tname}: err {errs[-1]}")
+                if tname == "bfloat16":
+                    for name in (dense_name, pruned_name):
+                        max_err[name] = max(max_err[name], max(errs))
+                print(f"[backward] {dense_name} == {pruned_name} bit-exact rows={rows} cap={cap} block={blk} "
+                      f"{tname}: max_abs_err vs plain {max(errs):.3g} (tol {tol}), padding rows zero")
+            del args, dense, pruned, plain
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def record_prefill(engine, sink: list) -> None:
     """Keep every prefill call's picked logits (the engine discards them)."""
     lookup = engine._prefill_fn
@@ -189,33 +296,32 @@ def record_prefill(engine, sink: list) -> None:
     engine._prefill_fn = wrapped
 
 
-def profile_run(run) -> None:
-    """Where serving time goes: the card's kernel time against the wall clock
-    of the same ticks (the first eight of a fresh engine: one prefill of the
-    first cohort, then decode), and the kernels that take most of it, under
-    ``torch.profiler`` (which adds host overhead, so the busy share it gives
-    is a lower bound for the unprofiled run)."""
+def profile_run(run, tag: str, unit: str) -> None:
+    """Where the time goes: the card's kernel time against the wall clock of
+    the same work (``run`` returns how many ``unit``s it did), and the
+    kernels that take most of it, under ``torch.profiler`` (which adds host
+    overhead, so the busy share it gives is a lower bound for the unprofiled
+    run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        engine = run()
+        units = run()
         wall_ms = 1e3 * (time.perf_counter() - t)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("[profile] the profiler recorded no device events: device busy share not measured")
+        print(f"[{tag}] the profiler recorded no device events: device busy share not measured")
         return
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    ticks = engine.stats.ticks
-    print(f"[profile] wall {wall_ms:.1f} ms, device kernel time {busy_ms:.1f} ms, busy share "
-          f"{busy_ms / wall_ms:.3f}, {len(kernels)} kernels ({len(kernels) / ticks:.0f} per tick "
-          f"over {ticks} ticks)")
+    print(f"[{tag}] profile: wall {wall_ms:.1f} ms, device kernel time {busy_ms:.1f} ms, busy share "
+          f"{busy_ms / wall_ms:.3f}, {len(kernels)} kernels ({len(kernels) / units:.0f} per {unit} "
+          f"over {units} {unit}s)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[profile]   {ms:8.2f} ms  {name[:100]}")
+        print(f"[{tag}]   {ms:8.2f} ms  {name[:100]}")
 
 
 def phase_serving():
@@ -281,9 +387,9 @@ def phase_serving():
         for _ in range(n):
             fresh.tick()
         torch.cuda.synchronize()
-        return fresh
+        return fresh.stats.ticks
 
-    profile_run(first_ticks)
+    profile_run(first_ticks, "serve", "tick")
 
     fa.reset_launches()
     dense_model = LM(dataclasses.replace(cfg, attn_grid="dense"))
@@ -325,6 +431,111 @@ def phase_serving():
     }
 
 
+def train_run(grid: str, profile_steps: int = 0) -> dict:
+    """TRAIN_STEPS steps of the train launcher's trainer on ``--attn-grid
+    grid`` from seed-0 weights; the kernels' launches are counted from 0 just
+    before the run and read just after it."""
+    import math
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(
+        TRAIN_ARGS + ["--attn-grid", grid]))
+    cfg = trainer.model.cfg
+    t0 = time.perf_counter()
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name} grid={grid}: {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f}M params {cfg.dtype}, "
+          f"init {time.perf_counter() - t0:.1f}s")
+    reg, tracer = obs.default_registry(), obs.default_tracer()
+    reg.reset()
+    tracer.reset()
+    tracer.enable()  # the trainer then syncs the card at the end of each step
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    state, steps = trainer.train_epoch(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    tracer.disable()
+    step_s = [e["dur"] / 1e6 for e in tracer.events() if e["name"] == "train/step"]
+    tokens = reg.flat()["train_tokens_total"]
+    peak = torch.cuda.max_memory_allocated()
+    check(steps == TRAIN_STEPS and len(trainer.history) == steps, f"{steps} steps run")
+    for rec in trainer.history:
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"step {rec['step']} on grid {grid}: loss {rec['loss']} grad_norm {rec['grad_norm']}")
+        print(f"[train] grid={grid} {Trainer.format_log_line(rec)}")
+    n = cfg.n_layers * steps
+    fwd, dq, dkv = (("segment_flash_attention_pruned", "segment_flash_attention_bwd_pruned_dq",
+                     "segment_flash_attention_bwd_pruned_dkv") if grid == "pruned" else
+                    ("segment_flash_attention", "segment_flash_attention_bwd_dq",
+                     "segment_flash_attention_bwd_dkv"))
+    want = {**dict.fromkeys(launches, 0), fwd: 2 * n, dq: n, dkv: n}
+    check(launches == want, f"grid {grid}: launches {launches} != {want}")
+    print(f"[train] grid={grid}: launches {launches} ({steps} steps x {cfg.n_layers} layers; "
+          f"remat runs the forward twice)")
+    loss_tokens = [rec["tokens"] for rec in trainer.history]
+    print(f"[train] grid={grid}: tokens/s {tokens / wall:.1f} ({tokens:.0f} real tokens in {wall:.3f}s), "
+          f"step s {[round(t, 3) for t in step_s]}, loss tokens/s over steps 2..{steps} "
+          f"{sum(loss_tokens[1:]) / sum(step_s[1:]):.1f}, max_memory_allocated {peak / 2**30:.3f} GiB")
+    if profile_steps:
+        more = Trainer(trainer.model, loader, trainer.opt_cfg,
+                       TrainerConfig(log_every=profile_steps, max_steps=profile_steps))
+
+        def run():
+            more.train_epoch(state)
+            torch.cuda.synchronize()
+            return profile_steps
+
+        profile_run(run, "train", "step")
+    return dict(launches=launches, losses=[r["loss"] for r in trainer.history],
+                grad_norms=[r["grad_norm"] for r in trainer.history], step_s=step_s,
+                tokens_per_s=tokens / wall, peak_gib=peak / 2**30)
+
+
+def phase_training() -> dict:
+    """Full-width training on the default (pruned) route, then on the dense
+    route from the same weights and data; returns the kernels' launches, each
+    from its own route's run."""
+    import torch
+
+    pruned = train_run("pruned", profile_steps=2)
+    torch.cuda.empty_cache()
+    dense = train_run("dense")
+    torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(pruned["losses"], dense["losses"])):
+        check(abs(a - b) <= LOSS_RTOL * abs(b), f"step {i + 1}: loss {a} (pruned) vs {b} (dense)")
+    print(f"[train] dense vs pruned route per-step losses {pruned['losses']} vs {dense['losses']} "
+          f"(rtol {LOSS_RTOL}); grad_norm {pruned['grad_norms']} vs {dense['grad_norms']}")
+    launches = {name: dense["launches"][name] for name in KERNELS if KERNELS[name][2] == "dense"}
+    launches.update({name: pruned["launches"][name] for name in KERNELS if KERNELS[name][2] == "pruned"})
+    return launches
+
+
+def sdpa_inputs(q, k, v, seg):
+    """The SDPA yardstick's (B, H, S, D) layout, kv heads repeated, and the
+    same visibility as a boolean mask (rows with no visible key are padding)."""
+    import torch
+
+    cap = q.shape[1]
+    pos = torch.arange(cap, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])[None] & (seg[:, :, None] == seg[:, None, :])
+            & (seg[:, None, :] > 0))[:, None]
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    return qt, kt, vt, mask
+
+
 def phase_times(rng, launches: dict):
     import torch
     import torch.nn.functional as F
@@ -336,7 +547,7 @@ def phase_times(rng, launches: dict):
     rows_out = []
     for rows, cap in SHAPES:
         blk = fa.select_block(cap, 128)
-        q, k, v, seg = make_case(rng, rows, cap, torch.bfloat16)
+        q, k, v, seg = make_case(rng, packed_segments(rng, rows, cap), torch.bfloat16)
         tables = build_liveness_tables(seg, block_q=blk, block_kv=blk)
         live = int(tables.kv_count.sum()) * HEADS
         flops = 4.0 * blk * blk * D_HEAD * live
@@ -347,14 +558,7 @@ def phase_times(rng, launches: dict):
         t_k1 = cuda_ms(lambda: fa.segment_flash_attention(q, k, v, seg, **kw))
         t_k4 = cuda_ms(lambda: fa.segment_flash_attention_pruned(q, k, v, seg, tables=tables, **kw))
         t_plain = cuda_ms(lambda: segment_flash_attention_ref(q, k, v, seg))
-        # SDPA yardstick: (B, H, S, D) layout, kv heads repeated, the same
-        # visibility as a boolean mask; rows with no visible key are padding.
-        pos = torch.arange(cap, device="cuda")
-        mask = ((pos[None, :] <= pos[:, None])[None] & (seg[:, :, None] == seg[:, None, :])
-                & (seg[:, None, :] > 0))[:, None]
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(HEADS // KV_HEADS, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(HEADS // KV_HEADS, dim=2).transpose(1, 2).contiguous()
+        qt, kt, vt, mask = sdpa_inputs(q, k, v, seg)
         t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
         row = dict(rows=rows, cap=cap, block=blk, live_tiles=live, flops=flops, bytes=nbytes,
                    bound_ms=1e3 * bound_s, bound_by=bound_by, k1_ms=t_k1, k4_ms=t_k4,
@@ -367,6 +571,95 @@ def phase_times(rng, launches: dict):
     return rows_out
 
 
+def phase_times_training(rng, train_seg) -> dict:
+    """Every kernel at the first training step's shape (bf16): each pass of
+    the backward alone through its C entry point, the plain version, the
+    SDPA yardstick (its forward for K1/K4, its backward for the backward
+    kernels) and the bound (live tiles' FLOPs at 4, 6 or 8 bq.bkv.D for the
+    forward, dQ and dK/dV; each input read once, each output written once)."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.liveness import build_liveness_tables
+    from repro_torch.kernels.ref import segment_flash_attention_bwd_ref, segment_flash_attention_ref
+
+    (q, k, v, seg, out, lse, do), blk = bwd_case(rng, train_seg, torch.bfloat16)
+    rows, cap = train_seg.shape
+    tables = build_liveness_tables(seg, block_q=blk, block_kv=blk)
+    live = int(tables.kv_count.sum()) * HEADS  # live (row, q-head, tile) triples
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = build.load_library("flash_bwd")
+    dims = (rows, cap, HEADS, KV_HEADS, D_HEAD, blk, blk, 1, 1.0 / D_HEAD**0.5,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    ptr = fa._ptr
+    head = (1, 0, ptr(q), ptr(k), ptr(v), ptr(seg))  # bf16 on device 0
+    resid = (ptr(do), ptr(lse), ptr(delta))
+    calls = {
+        "segment_flash_attention_bwd_dq": head + resid + (ptr(dq),),
+        "segment_flash_attention_bwd_dkv": head + resid + (ptr(dk), ptr(dv)),
+        "segment_flash_attention_bwd_pruned_dq":
+            head + (ptr(tables.kv_idx), ptr(tables.kv_count)) + resid + (ptr(dq),),
+        "segment_flash_attention_bwd_pruned_dkv":
+            head + (ptr(tables.q_idx), ptr(tables.q_count)) + resid + (ptr(dk), ptr(dv)),
+    }
+
+    def launch(name):
+        rc = getattr(lib, KERNELS[name][3])(*calls[name], *dims)
+        check(rc == 0, f"{name}: CUDA error {rc}")
+
+    elem = rows * cap * D_HEAD  # elements of one head's (rows, cap, D) slab
+    qo_bytes, kv_bytes = 2 * elem * HEADS, 2 * elem * KV_HEADS
+    stat_bytes = 4 * rows * cap * HEADS  # one fp32 (rows, cap, H) statistic
+    seg_bytes = 4 * rows * cap
+    work = {  # name -> (FLOPs, bytes read once + written once)
+        "fwd": (4.0 * blk * blk * D_HEAD * live, 2 * qo_bytes + 2 * kv_bytes + stat_bytes + seg_bytes),
+        "dq": (6.0 * blk * blk * D_HEAD * live, 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "dkv": (8.0 * blk * blk * D_HEAD * live, 2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
+    }
+    qt, kt, vt, mask = sdpa_inputs(q, k, v, seg)
+    t_lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=10)
+    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_do = do.transpose(1, 2).contiguous()
+    t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True),
+                        iters=5, warmup=1)
+    del lib_out, qt, kt, vt, mask
+    t_plain_fwd = cuda_ms(lambda: segment_flash_attention_ref(q, k, v, seg, return_lse=True),
+                          iters=3, warmup=1)
+    t_plain_bwd = cuda_ms(lambda: segment_flash_attention_bwd_ref(q, k, v, seg, out, lse, do),
+                          iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    kw = dict(block_q=blk, block_kv=blk, return_lse=True)
+    timed = {
+        "segment_flash_attention": ("fwd", lambda: fa.segment_flash_attention(q, k, v, seg, **kw)),
+        "segment_flash_attention_pruned": ("fwd", lambda: fa.segment_flash_attention_pruned(
+            q, k, v, seg, tables=tables, **kw)),
+        **{name: ("dq" if name.endswith("_dq") else "dkv", lambda name=name: launch(name))
+           for pair in BWD_PAIRS for name in pair},
+    }
+    result = {}
+    for name, (kind, fn) in timed.items():
+        ms = cuda_ms(fn, iters=5, warmup=1)
+        flops, nbytes = work[kind]
+        bound_by = "operations" if flops / PEAK_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        result[name] = dict(
+            ms=ms, bound_ms=1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES), bound_by=bound_by,
+            plain_ms=t_plain_fwd if kind == "fwd" else t_plain_bwd,
+            library_ms=t_lib_fwd if kind == "fwd" else t_lib_bwd, flops=flops, bytes=nbytes,
+        )
+        r = result[name]
+        print(f"[times] {name} rows={rows} cap={cap} block={blk} bf16 (training step 1): kernel_ms "
+              f"{ms:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.5f} ({bound_by}) live tiles {live} "
+              f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+    return dict(result, shape=[rows, cap, HEADS, KV_HEADS, D_HEAD], block=blk, live_tiles=live)
+
+
 def main() -> None:
     import torch
 
@@ -374,25 +667,42 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout")
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        sys.stdout.flush()
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import numpy as np
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # every reference here is full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     name, count = phase_device()
     phase_build()
     max_err = phase_parity(np.random.default_rng(0))
-    launches = phase_serving()
-    times = phase_times(np.random.default_rng(1), launches)
-    head = times[-1]  # the widest serving shape, (8, 256)
+    train_seg = training_segments()
+    max_err.update(phase_backward(np.random.default_rng(2), train_seg))
+    serve_launches = phase_serving()
+    train_launches = phase_training()
+    serve_times = phase_times(np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
+    times = phase_times_training(np.random.default_rng(3), train_seg)
     kernels = []
-    for kname, info in KERNELS.items():
-        kernels.append(dict(
-            name=kname, route="cuda", source=info["source"], replaces=info["replaces"],
-            launches=launches[kname], max_abs_err=max_err[kname],
-            ms=head["k1_ms" if kname == "segment_flash_attention" else "k4_ms"],
-            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"],
-            shape=[head["rows"], head["cap"], HEADS, KV_HEADS, D_HEAD], dtype="bfloat16",
-            parity="pass: vs plain (bf16 2e-2, fp32 2e-5) and K4 == K1 bit-exact",
-        ))
+    for kname, (source, replaces, grid, _) in KERNELS.items():
+        t = times[kname]
+        entry = dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=train_launches[kname], max_abs_err=max_err[kname],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=times["shape"], dtype="bfloat16",
+            launches_note=f"{TRAIN_STEPS} training steps on attn_grid={grid}",
+        )
+        if kname in serve_launches:
+            entry.update(
+                launches_serving=serve_launches[kname],
+                serving_ms=serve_times["k1_ms" if grid == "dense" else "k4_ms"],
+                serving_shape=[serve_times["rows"], serve_times["cap"], HEADS, KV_HEADS, D_HEAD],
+            )
+        kernels.append(entry)
+    print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

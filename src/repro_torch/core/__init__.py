@@ -1,1 +1,36 @@
-"""Framework-neutral ODB admission core: the parts serving uses."""
+"""Core ODB library: grouping, alignment, the DGAP protocol, batch layouts
+(copies of the JAX package's framework-neutral modules)."""
+
+from repro_torch.core.buckets import BucketSpec, PackedBucketSpec
+from repro_torch.core.grouping import Group, Sample, greedy_group
+from repro_torch.core.layout import (
+    BatchLayout,
+    DenseLayout,
+    DeviceBatch,
+    PackedLayout,
+    global_batch_arrays,
+    make_layout,
+    unify_step_shapes,
+)
+from repro_torch.core.metadata import StepMetadata
+from repro_torch.core.protocol import IDLE, EpochAudit, OdbConfig, run_epoch
+
+__all__ = [
+    "IDLE",
+    "BatchLayout",
+    "BucketSpec",
+    "DenseLayout",
+    "DeviceBatch",
+    "EpochAudit",
+    "Group",
+    "OdbConfig",
+    "PackedBucketSpec",
+    "PackedLayout",
+    "Sample",
+    "StepMetadata",
+    "global_batch_arrays",
+    "greedy_group",
+    "make_layout",
+    "run_epoch",
+    "unify_step_shapes",
+]

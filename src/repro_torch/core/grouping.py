@@ -1,5 +1,4 @@
-"""Dynamic batch sizing and greedy length grouping (paper §2.2, App. D);
-a copy of the JAX package's, as serving admission uses it.
+"""Dynamic batch sizing and greedy length grouping (paper §2.2, App. D).
 
 ODB keeps the per-batch token count roughly constant via a user-specified
 token budget ``L_max``.  For a realized post-pipeline sample length ``l`` the
@@ -21,7 +20,7 @@ per-group token counts converge to ``L_max`` (App. D worked example).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Iterable, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +66,22 @@ class Group:
     def max_length(self) -> int:
         return max(s.length for s in self.samples)
 
+    @property
+    def real_tokens(self) -> int:
+        return sum(s.length for s in self.samples)
+
+    @property
+    def padded_tokens(self) -> int:
+        """Token area after right-padding every sample to the group max."""
+        return self.size * self.max_length
+
+    @property
+    def padding_fraction(self) -> float:
+        padded = self.padded_tokens
+        return 0.0 if padded == 0 else 1.0 - self.real_tokens / padded
+
+    def lengths(self) -> tuple[int, ...]:
+        return tuple(s.length for s in self.samples)
 
 
 def target_group_size(length: int, l_max: int) -> int:
@@ -78,7 +93,12 @@ def target_group_size(length: int, l_max: int) -> int:
     return max(l_max // length, 1)
 
 
-def greedy_group(samples: Sequence[Sample], l_max: int) -> list[Group]:
+def greedy_group(
+    samples: Sequence[Sample],
+    l_max: int,
+    *,
+    size_rule: Callable[[int, int], int] = target_group_size,
+) -> list[Group]:
     """Threshold-carry greedy grouping (§2.2; worked example App. D).
 
     Sort ascending, iterate longest → shortest with running threshold ``t``
@@ -101,7 +121,31 @@ def greedy_group(samples: Sequence[Sample], l_max: int) -> list[Group]:
         if len(current) >= threshold:
             groups.append(Group(samples=tuple(current)))
             current = []
-            threshold = target_group_size(sample.length, l_max)
+            threshold = size_rule(sample.length, l_max)
     if current:
         groups.append(Group(samples=tuple(current)))
     return groups
+
+
+def regroup(samples: Iterable[Sample], l_max: int) -> list[Group]:
+    """Re-run grouping over recirculated + fresh samples (overflow reuse)."""
+    return greedy_group(list(samples), l_max)
+
+
+def padding_stats(groups: Sequence[Group]) -> dict[str, float]:
+    """Cumulative padding statistics over a set of groups.
+
+    ``pad%`` follows the paper's definition (App. I, Table 13):
+    ``1 - sum(L_real) / sum(L_compute)`` where L_compute pads each sample to
+    its group max.
+    """
+    real = sum(g.real_tokens for g in groups)
+    padded = sum(g.padded_tokens for g in groups)
+    return {
+        "groups": float(len(groups)),
+        "samples": float(sum(g.size for g in groups)),
+        "real_tokens": float(real),
+        "padded_tokens": float(padded),
+        "padding_fraction": 0.0 if padded == 0 else 1.0 - real / padded,
+        "mean_group_tokens": float(padded) / len(groups) if groups else 0.0,
+    }

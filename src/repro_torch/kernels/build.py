@@ -19,7 +19,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,15 @@ SIGNATURES = {
             + [_c_int] * 8 + [_c_float, _ptr],
             _c_int,
         ),
+        "flash_error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "flash_bwd": {
+        # (dtype, device, q, k, v, seg, [tables,] dout, lse, delta, outputs...,
+        #  B, S, H, KV, D, bq, bkv, causal, scale, stream)
+        "flash_bwd_dq_dense": ([_c_int, _c_int] + [_ptr] * 8 + [_c_int] * 8 + [_c_float, _ptr], _c_int),
+        "flash_bwd_dq_pruned": ([_c_int, _c_int] + [_ptr] * 10 + [_c_int] * 8 + [_c_float, _ptr], _c_int),
+        "flash_bwd_dkv_dense": ([_c_int, _c_int] + [_ptr] * 9 + [_c_int] * 8 + [_c_float, _ptr], _c_int),
+        "flash_bwd_dkv_pruned": ([_c_int, _c_int] + [_ptr] * 11 + [_c_int] * 8 + [_c_float, _ptr], _c_int),
         "flash_error_string": ([_c_int], ctypes.c_char_p),
     },
 }

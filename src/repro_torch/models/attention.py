@@ -1,12 +1,14 @@
-"""GQA attention with KV caches and segment masking (serving paths).
+"""GQA attention with KV caches and segment masking.
 
-Two prefill implementations behind one entry point: the plain blockwise
-masked attention below (``attn_impl="xla"``, the name kept from the JAX
-package) and the hand-written segment flash kernels in
-``repro_torch.kernels``.  ``use_flash_attention`` routes between them from
-``ArchConfig.attn_impl``; "auto" takes the kernel exactly when the batch is
-packed and the tensors lie on a CUDA device.  Decode always takes the plain
-path over the cache.
+Three paths: cache-free attention (training), the slot-scatter prefill
+(serving) and the per-slot decode over the cache.  The first two have two
+implementations behind one entry point: the plain blockwise masked attention
+below (``attn_impl="xla"``, the name kept from the JAX package) and the
+hand-written segment flash kernels in ``repro_torch.kernels``, whose
+autograd backward is a kernel too.  ``use_flash_attention`` routes between
+them from ``ArchConfig.attn_impl``; "auto" takes the kernel exactly when the
+batch is packed and the tensors lie on a CUDA device.  Decode always takes
+the plain path over the cache.
 
 Masking contract (shared with the kernels): attention is allowed iff
 ``segment_ids`` match (padding carries segment 0) AND (causal ⇒ key position
@@ -90,8 +92,8 @@ def _pick_block(s: int, preferred: int = 256) -> int:
 def use_flash_attention(cfg, segments, cache) -> bool:
     """Route this call through the segment flash kernels?
 
-    Only cache-free attention (the packed prefill) matches the kernel
-    contract.  "flash" forces the kernel (its plain version on CPU tensors),
+    Only cache-free attention (training, the packed prefill) matches the
+    kernel contract.  "flash" forces the kernel (its plain version on CPU tensors),
     "xla" forces the plain path, "auto" takes the kernel when the batch is
     packed and the device is CUDA.
     """
@@ -182,17 +184,20 @@ def gqa_attention(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and dest_slot is not None:
-        # Slot-scatter prefill: attention is the cache-free packed-segment
-        # path, while the roped K/V stream lands in per-request cache rows at
-        # (dest_slot, within-segment position).  Padding positions carry an
-        # out-of-range dest row; their writes are dropped.
-        num_slots, max_len = cache.k.shape[:2]
-        keep = (dest_slot < num_slots) & (positions < max_len)
-        rows, cols = dest_slot[keep].long(), positions[keep].long()
-        cache.k[rows, cols] = k[keep].to(cache.k.dtype)
-        cache.v[rows, cols] = v[keep].to(cache.v.dtype)
+    if cache is None or dest_slot is not None:
+        if cache is not None:
+            # Slot-scatter prefill: attention is the cache-free packed-segment
+            # path, while the roped K/V stream lands in per-request cache rows
+            # at (dest_slot, within-segment position).  Padding positions carry
+            # an out-of-range dest row; their writes are dropped.
+            num_slots, max_len = cache.k.shape[:2]
+            keep = (dest_slot < num_slots) & (positions < max_len)
+            rows, cols = dest_slot[keep].long(), positions[keep].long()
+            cache.k[rows, cols] = k[keep].to(cache.k.dtype)
+            cache.v[rows, cols] = v[keep].to(cache.v.dtype)
         if use_flash_attention(cfg, segments, None):
+            # The kernels' row-absolute causal mask plus the segment compare
+            # realizes the blockwise path's within-segment objective.
             from repro_torch.kernels.ops import flash_attention
 
             grid = resolve_flash_grid(cfg, segments)
@@ -205,9 +210,10 @@ def gqa_attention(
             )
         return out.reshape(b, s, h * dh) @ params["wo"], cache
 
-    if cache is None or cache_index is None or cache_index.dim() != 1 or s != 1:
+    if cache_index is None or cache_index.dim() != 1 or s != 1:
         raise NotImplementedError(
-            "ported paths: slot-scatter prefill and one-token per-slot decode"
+            "ported paths: cache-free attention, slot-scatter prefill and "
+            "one-token per-slot decode"
         )
     # Per-slot cache frontier (continuous-batching decode): row i writes its
     # new K/V at its own offset cache_index[i] and reads keys strictly below

@@ -63,13 +63,15 @@ class ArchConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     logits_fp32: bool = True
-    # remat policy of the JAX package's training stack (not read here)
+    # Training remat: "full" recomputes each layer in the backward
+    # (torch.utils.checkpoint around every layer); "none" keeps every
+    # activation; the JAX package's "dots" policy is not ported.
     remat: str = "full"
 
     # ---- kernel routing ----
-    # Prefill attention implementation: "xla" = the plain blockwise masked
-    # attention in models/attention.py (the name is kept from the JAX
-    # package); "flash" = the hand-written segment flash kernels
+    # Cache-free attention (training, packed prefill): "xla" = the plain
+    # blockwise masked attention in models/attention.py (the name is kept
+    # from the JAX package); "flash" = the hand-written segment flash kernels
     # (repro_torch.kernels; their plain version on CPU tensors); "auto" =
     # flash when the batch is packed (segments present) and the tensors lie
     # on a CUDA device, xla otherwise.  Decode always takes the plain path.
@@ -86,7 +88,7 @@ class ArchConfig:
     attn_autotune: bool = False
 
     # Training and sharding levers of the JAX package, kept so one config
-    # describes both packages; the serving path here does not read them.
+    # describes both packages; the port does not read them.
     bf16_grad_barrier: bool = False
     sequence_sharding: bool = False
     attn_head_constraint: bool = False

@@ -1,4 +1,4 @@
-"""Primitive layers: norms, rotary embeddings, MLP, init."""
+"""Primitive layers: norms, rotary embeddings, MLP, init, the masked loss."""
 
 from __future__ import annotations
 
@@ -89,3 +89,26 @@ def apply_mlp(params: Params, x: torch.Tensor, act: str, gated: bool) -> torch.T
     else:
         h = act_fn(act)(h)
     return h @ params["w_out"]
+
+
+# -- losses --------------------------------------------------------------------
+
+
+def masked_cross_entropy(
+    logits: torch.Tensor,  # (..., seq, vocab)
+    labels: torch.Tensor,  # (..., seq) int
+    mask: torch.Tensor,  # (..., seq) float — 1 on valid targets
+    *,
+    fp32: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (loss_sum, token_count) — the Eq. 2 accumulation primitives.
+
+    The *sum*, not the mean, so the trainer can apply sample- or token-level
+    scaling per the selected ODB mode.
+    """
+    if fp32:
+        logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - picked) * mask
+    return nll.sum(), mask.sum()

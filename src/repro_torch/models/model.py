@@ -1,16 +1,23 @@
-"""The language model: embeddings + layer stack + head, serving entry points.
+"""The language model: embeddings + layer stack + head, training and serving
+entry points.
 
 ``LM`` is an ``nn.Module`` that holds the weights; its step methods take the
-parameter tree explicitly, as the JAX package's do, so the engine and the
-tests can hand it weights from :meth:`LM.init`, :meth:`LM.load_params` or
-the JAX bridge alike.  The tree is::
+parameter tree explicitly, as the JAX package's do, so the trainer, the
+engine and the tests can hand it weights from :meth:`LM.init`,
+:meth:`LM.load_params` or the JAX bridge alike.  The tree is::
 
     {"embed": (Vp, d), "unembed": (d, Vp), "final_norm": {"scale"},
      "layers": [{"norm_mixer", "mixer", "norm_ffn", "mlp"}, ...]}
 
 with every projection stored ``(d_in, d_out)`` and applied as ``x @ W``, the
-JAX package's layout.  Entry points: ``init_caches``, ``prefill_packed`` and
-``decode_step_slots``.
+JAX package's layout.  Every weight is a trainable ``nn.Parameter``; the
+serving steps run under ``torch.no_grad()``, so they record no graph.
+
+Entry points: ``forward`` → fp32 logits and ``loss_sums`` → (loss_sum,
+token_count) for training; ``init_caches``, ``prefill_packed`` and
+``decode_step_slots`` for serving.  Batches are dicts: ``tokens`` (B, S),
+``labels``, ``loss_mask`` and, for the packed layout, ``positions`` and
+``segments``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (
@@ -28,7 +36,12 @@ from repro_torch.models.blocks import (
     stack_plan,
 )
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_norm, dense_init, make_norm_params
+from repro_torch.models.layers import (
+    apply_norm,
+    dense_init,
+    make_norm_params,
+    masked_cross_entropy,
+)
 
 Params = dict[str, Any]
 
@@ -39,8 +52,8 @@ def padded_vocab(vocab: int) -> int:
     return (vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN * VOCAB_ALIGN
 
 
-def _frozen(group: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in group.items()})
+def _parameters(group: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t) for k, t in group.items()})
 
 
 class LM(nn.Module):
@@ -56,6 +69,8 @@ class LM(nn.Module):
             raise ValueError(f"attn_impl {cfg.attn_impl!r} not in ('xla', 'flash', 'auto')")
         if cfg.attn_grid not in ("dense", "pruned", "auto"):
             raise ValueError(f"attn_grid {cfg.attn_grid!r} not in ('dense', 'pruned', 'auto')")
+        if cfg.remat == "dots":
+            raise NotImplementedError("remat='dots' is not ported yet; use 'full' or 'none'")
 
     # -- weights ---------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None) -> Params:
@@ -82,11 +97,11 @@ class LM(nn.Module):
             raise ValueError(f"{len(params['layers'])} layers != n_layers {self.cfg.n_layers}")
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, model on {self.device}")
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.unembed = nn.Parameter(params["unembed"], requires_grad=False)
-        self.final_norm = _frozen(params["final_norm"])
+        self.embed = nn.Parameter(params["embed"])
+        self.unembed = nn.Parameter(params["unembed"])
+        self.final_norm = _parameters(params["final_norm"])
         self.layers = nn.ModuleList(
-            nn.ModuleDict({name: _frozen(group) for name, group in layer.items()})
+            nn.ModuleDict({name: _parameters(group) for name, group in layer.items()})
             for layer in params["layers"]
         )
         return self.params
@@ -113,9 +128,52 @@ class LM(nn.Module):
             new_caches.append(cache)
         return x, new_caches
 
+    def _train_stack(self, params, x, positions, segments):
+        """The cache-free stack.  With ``remat="full"`` (the JAX package's
+        ``jax.checkpoint`` around its scan body) each layer keeps only its
+        input for the backward and recomputes the rest there."""
+        cfg = self.cfg
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for layer_params in params["layers"]:
+            def layer(h, layer_params=layer_params):
+                return layer_forward(layer_params, h, cfg, positions, segments, None, None)[0]
+
+            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        return x
+
     def _logits(self, params, x) -> torch.Tensor:
         x = apply_norm(params["final_norm"], x, self.cfg)
         return (x @ params["unembed"]).float()
+
+    # -- training ---------------------------------------------------------------
+    def forward(self, params: Params, batch: dict) -> torch.Tensor:
+        """Logits over the padded vocabulary; the padding columns carry a
+        -1e9 bias so they never win a softmax."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        x = params["embed"][tokens]
+        x = self._train_stack(params, x, positions, batch.get("segments"))
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        logits = x @ params["unembed"]
+        if self.cfg.logits_fp32:
+            logits = logits.float()
+        vp = padded_vocab(self.cfg.vocab_size)
+        if vp != self.cfg.vocab_size:
+            pad_bias = torch.where(
+                torch.arange(vp, device=logits.device) < self.cfg.vocab_size, 0.0, -1e9
+            ).to(logits.dtype)
+            logits = logits + pad_bias
+        return logits
+
+    def loss_sums(self, params: Params, batch: dict):
+        """(loss_sum, token_count) over valid targets — Eq. 2 primitives."""
+        logits = self.forward(params, batch)
+        return masked_cross_entropy(
+            logits, batch["labels"], batch["loss_mask"], fp32=self.cfg.logits_fp32
+        )
 
     # -- serving ------------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int) -> list:
@@ -163,3 +221,23 @@ class LM(nn.Module):
         )
         x, caches = self._run_stack(params, x, positions, None, caches, lengths)
         return self._logits(params, x), caches
+
+
+def shift_labels(
+    tokens: torch.Tensor,
+    loss_mask: torch.Tensor,
+    pad_id: int = 0,
+    segments: torch.Tensor | None = None,
+):
+    """Next-token targets: labels[t] = tokens[t+1]; last position masked.
+
+    With ``segments`` (packed layout) a position is also masked when the next
+    token belongs to another segment, or the last token of each packed sample
+    would be trained to predict its row neighbour's first token.
+    """
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], pad_id)], dim=1)
+    mask = loss_mask * torch.cat([loss_mask[:, 1:], torch.zeros_like(loss_mask[:, :1])], dim=1)
+    if segments is not None:
+        next_seg = torch.cat([segments[:, 1:], torch.zeros_like(segments[:, :1])], dim=1)
+        mask = mask * (segments == next_seg).to(mask.dtype)
+    return labels, mask

@@ -7,6 +7,7 @@ Module-level conveniences operate on the process-wide defaults::
     obs.counter("serve_ticks_total").inc()
     with obs.span("serve/tick", tick=3):
         ...
+    obs.instant("dgap/closure", event="join_all_finished")
 
 The default registry is enabled; the default tracer is disabled until a
 caller enables it.
@@ -30,6 +31,7 @@ __all__ = [
     "DEFAULT_BUCKETS",
     "NULL",
     "NULL_SPAN",
+    "ROUND_DURATION_BUCKETS",
     "Counter",
     "Gauge",
     "Histogram",
@@ -42,8 +44,16 @@ __all__ = [
     "default_tracer",
     "gauge",
     "histogram",
+    "instant",
     "span",
 ]
+
+# Protocol rounds are pure-python bookkeeping: microseconds to low
+# milliseconds on CPU.  Seconds-scale bins catch pathological stalls.
+ROUND_DURATION_BUCKETS = (
+    1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
+    1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.5, 1.0,
+)
 
 
 def counter(name: str, help: str = "", unit: str = "", **labels):
@@ -64,3 +74,8 @@ def histogram(name: str, buckets=DEFAULT_BUCKETS, help: str = "", unit: str = ""
 def span(name: str, cat: str = "", **args):
     """Span context manager on the default tracer (NULL_SPAN when disabled)."""
     return default_tracer().span(name, cat=cat, **args)
+
+
+def instant(name: str, cat: str = "", **args) -> None:
+    """Instant event on the default tracer (no-op when disabled)."""
+    default_tracer().instant(name, cat=cat, **args)

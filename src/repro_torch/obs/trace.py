@@ -2,9 +2,10 @@
 package's tracer).
 
 Records nested *spans* (Chrome ``"X"`` complete events: name, start, dur)
-into a thread-safe bounded ring buffer, exported as the ``chrome://tracing``
-/ Perfetto trace-event JSON format — serve admit/prefill/decode render
-inside engine ticks.
+and *instant* events into a thread-safe bounded ring buffer, exported as the
+``chrome://tracing`` / Perfetto trace-event JSON format — serve
+admit/prefill/decode render inside engine ticks, realize/pad/device_put/
+compute inside train steps, protocol rounds as their own spans.
 
 Properties the instrumented hot paths rely on:
 
@@ -118,6 +119,24 @@ class SpanTracer:
         if not self.enabled:
             return NULL_SPAN
         return Span(self, name, cat, args)
+
+    def instant(self, name: str, cat: str = "", **args) -> None:
+        """Record a zero-duration marker (closure events, compile events)."""
+        if not self.enabled:
+            return
+        event = {
+            "name": name,
+            "ph": "i",
+            "s": "t",  # thread-scoped instant
+            "ts": self._us(self.clock()),
+            "pid": os.getpid(),
+            "tid": self._tid(),
+        }
+        if cat:
+            event["cat"] = cat
+        if args:
+            event["args"] = args
+        self._append(event)
 
     def complete(
         self, name: str, start_s: float, dur_s: float, cat: str = "", **args

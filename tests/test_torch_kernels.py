@@ -164,4 +164,4 @@ class TestBlocksAndTables:
                               True, 64, 64, "pruned")
         ref = segment_flash_attention_ref(_to_torch(q), _to_torch(k), _to_torch(v), _to_torch(seg))
         assert torch.equal(out, ref)
-        assert fa.LAUNCHES == {"segment_flash_attention": 0, "segment_flash_attention_pruned": 0}
+        assert fa.LAUNCHES == dict.fromkeys(fa.LAUNCHES, 0) and len(fa.LAUNCHES) == 6
