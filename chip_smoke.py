@@ -36,12 +36,26 @@ source, in parallel), then runs:
                2 x 28, K2 and K3 28 times per step, K4-K6 never, and give the
                same per-step losses within LOSS_RTOL; tokens/s, step time and
                peak memory, and ``torch.profiler``'s busy share over two steps;
-6. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+6. ssd       — the SSD chunk-scan kernel (K7) against its plain chunked
+               version, y and the final state, at the JAX package's sweep
+               shapes and at the full-width (2, 2048, 24, 64, 128, 256) on
+               the column views the model passes, from a zero and a random
+               initial state, in fp32 (atol 1e-4, rtol 1e-3) and bf16 (2e-2);
+               once against the sequential recurrence in fp32;
+7. ssm       — full-width mamba2-130m in bf16 (random weights from seed 0):
+               ``LM.prefill`` of 8 prompts x 2048 tokens (K7 must launch 24
+               times) and 32 greedy ``LM.decode_step``s (K7 never); prefill
+               ms, decode ms per step, tokens/s, peak memory and
+               ``torch.profiler``'s busy share.  The fp32 rail at 2 x 512:
+               teacher-forced decode equals the full forward at 2e-3, and the
+               card's prefill logits equal the CPU port's at 1e-3;
+8. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
-               the bound;
-7. kernels   — one JSON line with every ported kernel.
+               the bound; K7 at (8, 2048) and (1, 32768) in bf16 beside its
+               plain version and its bound (no PyTorch call computes the SSD);
+9. kernels   — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -93,6 +107,17 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, grid, C entry point)
 }
 BWD_PAIRS = (("segment_flash_attention_bwd_dq", "segment_flash_attention_bwd_pruned_dq"),
              ("segment_flash_attention_bwd_dkv", "segment_flash_attention_bwd_pruned_dkv"))
+# The SSD kernel (K7).  (B, S, H, P, N, chunk): the JAX package's sweep
+# (tests/test_kernels.py), then mamba2-130m's widths.
+SSD = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:86"
+SSD_SWEEP = ((1, 64, 1, 8, 16, 16), (2, 128, 3, 8, 16, 32), (1, 256, 2, 16, 32, 64),
+             (2, 96, 4, 8, 8, 32))
+SSD_FULL = (2, 2048, 24, 64, 128, 256)
+SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-3), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+SSD_TIMES = ((8, 2048), (1, 32768))  # (B, S) at full width, bf16
+SSM_ROWS, SSM_PROMPT, SSM_DECODE = 8, 2048, 32  # the ssm phase's prefill and decode
+SSM_RAIL = (2, 512, 384)  # fp32 rail: rows, tokens, prefill length before teacher forcing
 
 
 def check(ok: bool, what: str) -> None:
@@ -660,6 +685,250 @@ def phase_times_training(rng, train_seg) -> dict:
     return dict(result, shape=[rows, cap, HEADS, KV_HEADS, D_HEAD], block=blk, live_tiles=live)
 
 
+def to_cpu(tree):
+    """A detached CPU copy of a parameter tree (dicts, lists, tensors)."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def ssd_case(rng, b, s, h, p, n, dtype, strided, decay=1.0):
+    """x, adt, dt, B, C and an initial state on the card, drawn as the JAX
+    sweep draws them.  With ``strided``, x, B and C are column views of one
+    (B, S, H*P + 2N) tensor, as the model's conv output hands them over.
+    ``decay`` scales a: at 1 the state forgets within ~20 steps, at 0.02 it
+    carries over chunks, so the initial state reaches y and the final state."""
+    import numpy as np
+    import torch
+
+    def card(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    xbc = card(np.concatenate([rng.standard_normal((b, s, h * p), dtype=np.float32) * 0.5,
+                               rng.standard_normal((b, s, 2 * n), dtype=np.float32) * 0.4], axis=-1),
+               dtype)
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    bp, cp = xbc[..., h * p : h * p + n], xbc[..., h * p + n :]
+    if not strided:
+        x, bp, cp = x.contiguous(), bp.contiguous(), cp.contiguous()
+    dt = card(np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32))))
+    a = card(-np.exp(rng.standard_normal(h) * 0.3) * decay)
+    init = card(rng.standard_normal((b, h, p, n), dtype=np.float32) * 0.5)
+    return (x, (a[None, None, :] * dt).contiguous(), dt, bp, cp), init, a
+
+
+def phase_ssd(rng) -> float:
+    """K7 against its plain chunked version (y and final state) and, once,
+    against the sequential recurrence; returns the largest bf16 error."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_ref
+
+    max_err = 0.0
+    cases = [(shape, dname, dtype, decay) for shape in SSD_SWEEP + (SSD_FULL,) for decay in (1.0, 0.02)
+             for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16))]
+    for shape, dname, dtype, decay in cases:
+        b, s, h, p, n, chunk = shape
+        args, init, _ = ssd_case(rng, b, s, h, p, n, dtype, strided=shape == SSD_FULL, decay=decay)
+        for initial in (None, init):
+            y, final = ssd.ssd_scan(*args, chunk=chunk, initial_state=initial, return_final_state=True)
+            ry, rfinal = ssd_chunked_ref(*args, chunk, initial)
+            torch.cuda.synchronize()
+            err = (y.float() - ry.float()).abs().max().item()
+            serr = (final - rfinal).abs().max().item()
+            tol = SSD_TOL[dname]
+            check(torch.allclose(y.float(), ry.float(), **tol) and torch.allclose(final, rfinal, **tol),
+                  f"ssd_scan vs plain at {shape} {dname} init={initial is not None}: "
+                  f"y err {err}, state err {serr}")
+            if dname == "bfloat16":
+                max_err = max(max_err, err)
+            print(f"[ssd] ssd_scan {shape} {dname} decay {decay} "
+                  f"init={'random' if initial is not None else 'zero'}"
+                  f"{' strided' if shape == SSD_FULL else ''}: max_abs_err y {err:.3g} "
+                  f"(max |y| {ry.float().abs().max().item():.3g}) state {serr:.3g} "
+                  f"(max |state| {rfinal.abs().max().item():.3g}) "
+                  f"(atol {tol['atol']}, rtol {tol['rtol']})")
+    b, s, h, p, n, chunk = SSD_FULL
+    (x, adt, dt, bp, cp), init, a = ssd_case(rng, b, s, h, p, n, torch.float32, strided=True, decay=0.02)
+    y, final = ssd.ssd_scan(x, adt, dt, bp, cp, chunk=chunk, initial_state=init, return_final_state=True)
+    ry, rfinal = ssd_scan_ref(x, dt, a, bp, cp, init)
+    torch.cuda.synchronize()
+    tol = SSD_TOL["float32"]
+    err, serr = (y - ry).abs().max().item(), (final - rfinal).abs().max().item()
+    check(torch.allclose(y, ry, **tol) and torch.allclose(final, rfinal, **tol),
+          f"ssd_scan vs sequential recurrence at {SSD_FULL}: y err {err}, state err {serr}")
+    print(f"[ssd] ssd_scan {SSD_FULL} float32 decay 0.02 init=random vs the sequential recurrence: "
+          f"max_abs_err y {err:.3g} state {serr:.3g}")
+    return max_err
+
+
+def phase_ssm() -> int:
+    """Full-width mamba2-130m: per-request prefill and greedy decode in bf16,
+    then the fp32 rail.  Returns K7's launches in the prefill call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import LM
+
+    cfg = get_config("mamba2_130m")
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[ssm] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} d_inner {cfg.d_inner} "
+          f"{cfg.n_ssm_heads} heads x {cfg.ssm_headdim}, d_state {cfg.d_state}, chunk {cfg.ssm_chunk}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params {cfg.dtype}, "
+          f"init {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(SSM_ROWS, SSM_PROMPT))).cuda()
+    max_len = SSM_PROMPT + SSM_DECODE
+
+    def generate(prompt):
+        logits, caches = model.prefill(params, prompt, max_len)
+        tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+        out = [tok]
+        for i in range(SSM_DECODE):
+            logits, caches = model.decode_step(params, caches, tok, prompt.shape[1] + i)
+            tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+            out.append(tok)
+        return logits, torch.cat(out, dim=1)
+
+    generate(tokens[:, :256])  # warm-up: cuBLAS handles, the kernel library, allocator pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.reset_launches()
+    t = time.perf_counter()
+    logits, caches = model.prefill(params, tokens, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = ssd.LAUNCHES["ssd_scan"]
+    check(prefill_launches == cfg.n_layers, f"K7 launched {prefill_launches} times in one prefill, "
+                                            f"not {cfg.n_layers}")
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (SSM_ROWS, 1, logits.shape[-1]),
+          f"prefill logits {tuple(logits.shape)} not finite")
+    ssd.reset_launches()
+    tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+    t = time.perf_counter()
+    for i in range(SSM_DECODE):
+        logits, caches = model.decode_step(params, caches, tok, SSM_PROMPT + i)
+        tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    check(ssd.LAUNCHES["ssd_scan"] == 0, f"K7 launched {ssd.LAUNCHES['ssd_scan']} times during decode")
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ssm] prefill {SSM_ROWS} x {SSM_PROMPT}: {1e3 * prefill_s:.2f} ms "
+          f"({SSM_ROWS * SSM_PROMPT / prefill_s:.0f} prompt tokens/s), K7 launches {prefill_launches}; "
+          f"decode {SSM_DECODE} steps: {1e3 * decode_s / SSM_DECODE:.3f} ms per step, "
+          f"{SSM_ROWS * SSM_DECODE / decode_s:.1f} generated tokens/s (decode), "
+          f"{SSM_ROWS * (SSM_DECODE + 1) / (prefill_s + decode_s):.1f} generated tokens/s (prefill + decode), "
+          f"K7 launches in decode 0; max_memory_allocated {peak / 2**30:.3f} GiB")
+
+    def run():
+        generate(tokens)
+        torch.cuda.synchronize()
+        return 1 + SSM_DECODE
+
+    profile_run(run, "ssm", "call")  # one prefill and SSM_DECODE decode steps
+    del logits, caches, model, params
+    torch.cuda.empty_cache()
+
+    # The fp32 rail at 2 x 512: teacher-forced decode against the full
+    # forward on the card (both through K7), and the card's prefill against
+    # the CPU port's on the same weights.
+    import dataclasses
+
+    rows, length, split = SSM_RAIL
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = LM(cfg32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(rows, length))).cuda()
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": toks})
+    first, caches = model.prefill(params, toks[:, :split], length)
+    steps = [first]
+    for i in range(split, length - 1):
+        lg, caches = model.decode_step(params, caches, toks[:, i : i + 1], i)
+        steps.append(lg)
+    # The forward's padded vocabulary columns carry a -1e9 bias; decode's do not.
+    dec = torch.cat(steps, dim=1)[..., : cfg.vocab_size]
+    ref = full[:, split - 1 : length - 1, : cfg.vocab_size]
+    err = (dec - ref).abs().max().item()
+    check(torch.allclose(dec, ref, atol=2e-3, rtol=2e-3),
+          f"fp32 teacher-forced decode vs full forward: max_abs_err {err}")
+    print(f"[ssm] fp32 {rows} x {length}: prefill {split} + {length - 1 - split} teacher-forced decode "
+          f"steps vs the full forward: max_abs_err {err:.3g} (atol = rtol = 2e-3)")
+    card_first, _ = model.prefill(params, toks, length)
+    cpu_model = LM(cfg32, device="cpu")
+    cpu_params = cpu_model.load_params(to_cpu(params))
+    cpu_first, _ = cpu_model.prefill(cpu_params, toks.cpu(), length)
+    err = (card_first.cpu() - cpu_first).abs().max().item()
+    check(torch.allclose(card_first.cpu(), cpu_first, atol=1e-3, rtol=1e-3),
+          f"fp32 prefill logits card vs CPU port: max_abs_err {err}")
+    print(f"[ssm] fp32 {rows} x {length} prefill logits, card (K7) vs CPU port (plain): "
+          f"max_abs_err {err:.3g} (atol = rtol = 1e-3)")
+    del full, dec, ref, model, params
+    torch.cuda.empty_cache()
+    return prefill_launches
+
+
+def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
+    """(FLOPs, bytes) of the least work of one K7 call with the final state:
+    C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
+    pairs j <= i, C.state and the state update; x, adt, dt, B, C read once,
+    y and the fp32 final state written once."""
+    nc, pairs = s // chunk, chunk * (chunk + 1) // 2
+    flops = 2.0 * (b * nc * pairs * n + b * h * nc * (pairs * p + 2 * chunk * p * n))
+    nbytes = elem * (2 * b * s * h * p + 2 * b * s * n) + 4 * (2 * b * s * h + b * h * p * n)
+    return flops, nbytes
+
+
+def phase_times_ssd(rng) -> list:
+    """K7 and its plain version at the [ssm] prefill's shape (8, 2048) and at
+    one long sequence, as the prefill calls it (strided views, no initial
+    state, final state out): y and the final state held against each other
+    at the bf16 tolerance, then each timed."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    rows = []
+    for b, s in SSD_TIMES:
+        args, _, _ = ssd_case(rng, b, s, 24, 64, 128, torch.bfloat16, strided=True)
+        y, final = ssd.ssd_scan(*args, chunk=256, return_final_state=True)
+        ry, rfinal = ssd_chunked_ref(*args, 256)
+        torch.cuda.synchronize()
+        tol = SSD_TOL["bfloat16"]
+        err = (y.float() - ry.float()).abs().max().item()
+        serr = (final - rfinal).abs().max().item()
+        check(torch.allclose(y.float(), ry.float(), **tol) and torch.allclose(final, rfinal, **tol),
+              f"ssd_scan vs plain at ({b}, {s}) bf16 strided: y err {err}, state err {serr}")
+        print(f"[ssd] ssd_scan ({b}, {s}, 24, 64, 128, 256) bfloat16 decay 1.0 init=zero strided: "
+              f"max_abs_err y {err:.3g} (max |y| {ry.float().abs().max().item():.3g}) state {serr:.3g} "
+              f"(max |state| {rfinal.abs().max().item():.3g}) (atol {tol['atol']}, rtol {tol['rtol']})")
+        del y, final, ry, rfinal
+        t_k = cuda_ms(lambda: ssd.ssd_scan(*args, chunk=256, return_final_state=True), iters=5, warmup=1)
+        t_plain = cuda_ms(lambda: ssd_chunked_ref(*args, 256), iters=3, warmup=1)
+        flops, nbytes = ssd_work(b, s)
+        bound_by = "operations" if flops / PEAK_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        bound_ms = 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
+        rows.append(dict(shape=[b, s, 24, 64, 128, 256], ms=t_k, plain_ms=t_plain, bound_ms=bound_ms,
+                         bound_by=bound_by, flops=flops, bytes=nbytes, max_abs_err=err))
+        print(f"[times] ssd_scan B={b} S={s} H=24 P=64 N=128 chunk=256 bf16: kernel_ms {t_k:.4f} "
+              f"plain_ms {t_plain:.4f} library_ms none (no PyTorch call computes the SSD) bound_ms "
+              f"{bound_ms:.5f} ({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
+              f"achieved {flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e9:.3f} TB/s")
+        del args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -681,10 +950,13 @@ def main() -> None:
     max_err = phase_parity(np.random.default_rng(0))
     train_seg = training_segments()
     max_err.update(phase_backward(np.random.default_rng(2), train_seg))
+    ssd_err = phase_ssd(np.random.default_rng(4))
     serve_launches = phase_serving()
     train_launches = phase_training()
+    ssm_launches = phase_ssm()
     serve_times = phase_times(np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = phase_times_training(np.random.default_rng(3), train_seg)
+    ssd_times = phase_times_ssd(np.random.default_rng(6))
     kernels = []
     for kname, (source, replaces, grid, _) in KERNELS.items():
         t = times[kname]
@@ -702,6 +974,18 @@ def main() -> None:
                 serving_shape=[serve_times["rows"], serve_times["cap"], HEADS, KV_HEADS, D_HEAD],
             )
         kernels.append(entry)
+    main_shape, long_shape = ssd_times
+    kernels.append(dict(
+        name="ssd_scan", route="cuda", source=SSD, replaces=SSD_REPLACES,
+        launches=ssm_launches, max_abs_err=max(ssd_err, main_shape["max_abs_err"]),
+        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+        bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"], library_ms=None,
+        shape=main_shape["shape"], dtype="bfloat16",
+        launches_note=f"one LM.prefill of {SSM_ROWS} x {SSM_PROMPT} on mamba2-130m; "
+                      f"{SSM_DECODE} decode steps launch none",
+        long_shape=long_shape["shape"], long_ms=long_shape["ms"], long_plain_ms=long_shape["plain_ms"],
+        long_bound_ms=long_shape["bound_ms"], long_bound_by=long_shape["bound_by"],
+    ))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -6,7 +6,10 @@ inverse, for comparing trained weights leaf by leaf.  Neither imports JAX.
 The JAX stack stores every layer of a scanned unit stacked on a leading axis
 (``params["stack"]["sub{j}"]``); the port keeps one entry per layer, so that
 axis is unstacked (and restacked) in layer order.  Projections keep the
-``(d_in, d_out)`` layout on both sides.
+``(d_in, d_out)`` layout on both sides.  Leaves keep their dtypes: an SSM
+layer's mixer (``in_z, in_x, in_b, in_c, in_dt, conv_w, dt_bias, a_log,
+d_skip, out_norm, out_proj``) has fp32 ``a_log``, ``dt_bias`` and ``d_skip``
+beside projections in the model dtype, and no FFN group.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Architecture configs (``--arch <id>``).  Ported so far: qwen3_0_6b."""
+"""Architecture configs (``--arch <id>``).  Ported so far: qwen3_0_6b, mamba2_130m."""
 
 from __future__ import annotations
 
@@ -6,9 +6,9 @@ import importlib
 
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ("qwen3_0_6b",)
+ARCH_IDS = ("qwen3_0_6b", "mamba2_130m")
 
-_ALIASES = {"qwen3-0.6b": "qwen3_0_6b"}
+_ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "mamba2-130m": "mamba2_130m"}
 
 
 def _module(arch: str):

@@ -19,7 +19,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,12 @@ SIGNATURES = {
         "flash_bwd_dkv_dense": ([_c_int, _c_int] + [_ptr] * 9 + [_c_int] * 8 + [_c_float, _ptr], _c_int),
         "flash_bwd_dkv_pruned": ([_c_int, _c_int] + [_ptr] * 11 + [_c_int] * 8 + [_c_float, _ptr], _c_int),
         "flash_error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "ssd_scan": {
+        # (dtype, device, x, adt, dt, b, c, init_state, y, final_state,
+        #  B, S, H, P, N, chunk, x/b/c batch and row strides, stream)
+        "ssd_scan_fwd": ([_c_int, _c_int] + [_ptr] * 8 + [_c_int] * 12 + [_ptr], _c_int),
+        "ssd_error_string": ([_c_int], ctypes.c_char_p),
     },
 }
 

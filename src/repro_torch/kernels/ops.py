@@ -12,6 +12,8 @@ the JAX package's ``custom_vjp``): the forward runs K1 or K4 and saves
 runs K2+K3 or K5+K6 with the forward's block pair, grid and tables, so the
 three passes provably consume one resolution.  On CPU tensors both
 directions take the plain version.
+
+:func:`ssd_chunked_scan` is the kernel-backed Mamba-2 SSD (K7), forward only.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.kernels.flash_attention import (
     segment_flash_attention_pruned,
 )
 from repro_torch.kernels.liveness import LivenessTables, build_liveness_tables
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 GRID_MODES = ("dense", "pruned", "auto")
 
@@ -88,3 +91,17 @@ def flash_attention(
     block_q, block_kv = resolve_blocks(s, block_q, block_kv)
     mode = resolve_grid(grid, segment_ids)
     return _Flash.apply(q, k, v, segment_ids, causal, block_q, block_kv, mode)
+
+
+def ssd_chunked_scan(
+    x, dt, a, b_proj, c_proj, *, chunk: int = 256, initial_state=None,
+    return_final_state: bool = False,
+):
+    """Kernel-backed SSD: y = SSD(x, dt, a, B, C) from ``initial_state``
+    (zero when None; fp32), with ``adt = a·dt`` formed here in fp32.
+    Returns ``y``, or ``(y, final_state)`` with ``return_final_state``."""
+    adt = (a[None, None, :] * dt).float()
+    return ssd_scan(
+        x, adt, dt.float(), b_proj, c_proj, chunk=chunk,
+        initial_state=initial_state, return_final_state=return_final_state,
+    )

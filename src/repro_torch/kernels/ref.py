@@ -13,6 +13,12 @@ under the mask, ``delta = rowsum(dO ⊙ O)``, ``ds = p ⊙ (dO·vᵀ - delta)``,
 in fp32.  A row with no visible key gives exactly zero dq and adds nothing to
 dk/dv.
 
+``ssd_scan_ref`` is the Mamba-2 SSD as its token-level recurrence, and
+``ssd_chunked_ref`` the same function chunk by chunk, the arithmetic of the
+SSD kernel (K7): a within-chunk quadratic term, the carried state's term and
+the state update, all in fp32, with an optional initial state and the final
+state returned.
+
 The CPU path of the kernel wrappers, the tests and ``chip_smoke.py`` use
 them; nothing on the card's main path does.
 """
@@ -104,3 +110,77 @@ def segment_flash_attention_bwd_ref(
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) positive
+    a: torch.Tensor,  # (H,) negative decay rates
+    b_proj: torch.Tensor,  # (B, S, N)
+    c_proj: torch.Tensor,  # (B, S, N)
+    initial_state: torch.Tensor | None = None,  # (B, H, P, N)
+):
+    """Token-level recurrence: h_t = exp(a·dt_t)·h_{t-1} + dt_t·B_t⊗x_t;
+    y_t = C_t · h_t.  Returns (y (B,S,H,P) in x's dtype, fp32 final state)."""
+    bsz, s, h, p = x.shape
+    n = b_proj.shape[-1]
+    if initial_state is None:
+        state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    else:
+        state = initial_state.float()
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()
+        decay = torch.exp(a[None, :].float() * dtt)  # (B, H)
+        upd = torch.einsum("bn,bh,bhp->bhpn", b_proj[:, t].float(), dtt, x[:, t].float())
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_proj[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunked_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    adt: torch.Tensor,  # (B, S, H) fp32: a·dt
+    dt: torch.Tensor,  # (B, S, H) fp32
+    b_proj: torch.Tensor,  # (B, S, N)
+    c_proj: torch.Tensor,  # (B, S, N)
+    chunk: int,  # divides S
+    initial_state: torch.Tensor | None = None,  # (B, H, P, N)
+):
+    """The SSD chunk by chunk, as the kernel computes it (fp32 throughout):
+
+        acs   = cumsum(adt) within the chunk
+        y_i   = Σ_{j≤i} exp(acs_i − acs_j)·(C_i·B_j)·dt_j·x_j + exp(acs_i)·(C_i·state)
+        state ← exp(acs_last)·state + Σ_j exp(acs_last − acs_j)·dt_j·x_j ⊗ B_j
+
+    The decay exp(acs_i − acs_j) is selected to 0 for j > i, never
+    multiplied by a mask (it may overflow to inf there).  Returns (y in x's
+    dtype, fp32 final state)."""
+    bsz, s, h, p = x.shape
+    n = b_proj.shape[-1]
+    if s % chunk:
+        raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
+    if initial_state is None:
+        state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    else:
+        state = initial_state.float()
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c0 in range(0, s, chunk):
+        xq = x[:, c0:c0 + chunk].float()  # (B, Q, H, P)
+        dtq = dt[:, c0:c0 + chunk].float()  # (B, Q, H)
+        bq = b_proj[:, c0:c0 + chunk].float()  # (B, Q, N)
+        cq = c_proj[:, c0:c0 + chunk].float()
+        acs = torch.cumsum(adt[:, c0:c0 + chunk].float(), dim=1)  # (B, Q, H)
+        acs_h = acs.transpose(1, 2)  # (B, H, Q)
+        l_mat = torch.where(tri, torch.exp(acs_h[..., :, None] - acs_h[..., None, :]), 0.0)
+        scores = torch.einsum("bqn,bsn->bqs", cq, bq)  # (B, Q, Q)
+        w = l_mat * scores[:, None] * dtq.transpose(1, 2)[:, :, None, :]  # (B, H, Q, Q)
+        y_diag = torch.einsum("bhqs,bshp->bqhp", w, xq)
+        y_off = torch.einsum("bqn,bhpn->bqhp", cq, state) * torch.exp(acs)[..., None]
+        chunk_decay = torch.exp(acs[:, -1:, :] - acs) * dtq  # (B, Q, H)
+        state = state * torch.exp(acs[:, -1, :])[:, :, None, None] + torch.einsum(
+            "bqhp,bqn->bhpn", xq * chunk_decay[..., None], bq
+        )
+        ys.append((y_diag + y_off).to(x.dtype))
+    return torch.cat(ys, dim=1), state

@@ -1,4 +1,5 @@
-"""Models: the dense transformer family, as nn.Modules over plain tensor functions."""
+"""Models: the dense transformer and Mamba-2 (SSM) families, as nn.Modules over
+plain tensor functions."""
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import LM, padded_vocab, shift_labels

@@ -2,7 +2,8 @@
 
 The JAX package scans its stack over units of layers; here the stack is a
 Python loop over unstacked layers, each with its own parameters and cache.
-Ported so far: the dense family (GQA attention + gated MLP).
+Ported so far: the dense family (GQA attention + gated MLP) and the SSM
+family (a Mamba-2 mixer and no FFN).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Any
 
 from repro_torch.models.attention import gqa_attention, init_kv_cache, make_attention_params
 from repro_torch.models.layers import apply_mlp, apply_norm, make_mlp_params, make_norm_params
+from repro_torch.models.ssm import apply_ssm_block, init_ssm_cache, make_ssm_params
 
 Params = dict[str, Any]
 
@@ -27,31 +29,48 @@ class StackPlan:
 
 
 def stack_plan(cfg) -> StackPlan:
-    """The JAX package's unit structure; the dense family is one layer per
-    unit with no prefix (the bridge unstacks by it)."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.first_k_dense:
+    """The JAX package's unit structure; the dense and SSM families are one
+    layer per unit with no prefix (the bridge unstacks by it)."""
+    if cfg.family not in ("dense", "ssm") or cfg.n_experts or cfg.first_k_dense:
         raise NotImplementedError(f"family {cfg.family!r} of {cfg.name} is not ported yet")
     return StackPlan(prefix_layers=(), unit_layers=tuple((l,) for l in range(cfg.n_layers)))
 
 
-def make_layer_params(generator, cfg, dtype, device) -> Params:
-    return {
-        "norm_mixer": make_norm_params(cfg, dtype, device),
-        "mixer": make_attention_params(generator, cfg, dtype, device),
-        "norm_ffn": make_norm_params(cfg, dtype, device),
-        "mlp": make_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device),
-    }
+def make_layer_params(generator, cfg, layer_idx: int, dtype, device) -> Params:
+    p: Params = {"norm_mixer": make_norm_params(cfg, dtype, device)}
+    if cfg.layer_kind(layer_idx) == "attn":
+        p["mixer"] = make_attention_params(generator, cfg, dtype, device)
+    else:
+        p["mixer"] = make_ssm_params(generator, cfg, dtype, device)
+    if cfg.d_ff:
+        p["norm_ffn"] = make_norm_params(cfg, dtype, device)
+        p["mlp"] = make_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
+    return p
 
 
-def layer_forward(params: Params, x, cfg, positions, segments, cache, cache_index, dest_slot=None):
+def layer_forward(params: Params, x, cfg, layer_idx: int, positions, segments, cache, cache_index,
+                  dest_slot=None):
     h = apply_norm(params["norm_mixer"], x, cfg)
-    mixed, new_cache = gqa_attention(
-        params["mixer"], h, cfg, positions, segments, cache, cache_index, dest_slot=dest_slot
-    )
+    if cfg.layer_kind(layer_idx) == "attn":
+        mixed, new_cache = gqa_attention(
+            params["mixer"], h, cfg, positions, segments, cache, cache_index, dest_slot=dest_slot
+        )
+    else:
+        if dest_slot is not None:
+            raise NotImplementedError(
+                "slot-scatter prefill cannot reconstruct per-segment SSM "
+                "states from a packed stream; SSM serving uses the "
+                "per-request prefill path (LM.prefill / LM.decode_step)"
+            )
+        mixed, new_cache = apply_ssm_block(params["mixer"], h, cfg, cache)
     x = x + mixed
+    if "norm_ffn" not in params:  # FFN-free block (mamba2: SSD mixer only)
+        return x, new_cache
     h = apply_norm(params["norm_ffn"], x, cfg)
     return x + apply_mlp(params["mlp"], h, cfg.act, cfg.gated_mlp), new_cache
 
 
-def init_layer_cache(cfg, batch: int, max_len: int, dtype, device):
-    return init_kv_cache(cfg, batch, max_len, dtype, device)
+def init_layer_cache(cfg, layer_idx: int, batch: int, max_len: int, dtype, device):
+    if cfg.layer_kind(layer_idx) == "attn":
+        return init_kv_cache(cfg, batch, max_len, dtype, device)
+    return init_ssm_cache()

@@ -15,9 +15,12 @@ serving steps run under ``torch.no_grad()``, so they record no graph.
 
 Entry points: ``forward`` → fp32 logits and ``loss_sums`` → (loss_sum,
 token_count) for training; ``init_caches``, ``prefill_packed`` and
-``decode_step_slots`` for serving.  Batches are dicts: ``tokens`` (B, S),
-``labels``, ``loss_mask`` and, for the packed layout, ``positions`` and
-``segments``.
+``decode_step_slots`` for the continuous-batching engine; ``prefill`` and
+``decode_step`` (one frontier for the whole batch) for per-request serving,
+the path of the SSM family, which the engine does not serve.  Batches are
+dicts: ``tokens`` (B, S), ``labels``, ``loss_mask`` and, for the packed
+layout, ``positions`` and ``segments``.  The layer tree of the SSM family is
+``{"norm_mixer", "mixer"}``: a Mamba-2 mixer and no FFN.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ class LM(nn.Module):
             "final_norm": make_norm_params(cfg, dt, dev),
             "embed": dense_init(generator, vp, cfg.d_model, dt, dev),
             "unembed": dense_init(generator, cfg.d_model, vp, dt, dev),
-            "layers": [make_layer_params(generator, cfg, dt, dev) for _ in range(cfg.n_layers)],
+            "layers": [make_layer_params(generator, cfg, l, dt, dev) for l in range(cfg.n_layers)],
         })
 
     def load_params(self, params: Params) -> Params:
@@ -120,9 +123,9 @@ class LM(nn.Module):
     # -- stack ------------------------------------------------------------------
     def _run_stack(self, params, x, positions, segments, caches, cache_index, dest_slot=None):
         new_caches = []
-        for layer_params, cache in zip(params["layers"], caches):
+        for l, (layer_params, cache) in enumerate(zip(params["layers"], caches)):
             x, cache = layer_forward(
-                layer_params, x, self.cfg, positions, segments, cache, cache_index,
+                layer_params, x, self.cfg, l, positions, segments, cache, cache_index,
                 dest_slot=dest_slot,
             )
             new_caches.append(cache)
@@ -134,9 +137,9 @@ class LM(nn.Module):
         input for the backward and recomputes the rest there."""
         cfg = self.cfg
         remat = cfg.remat == "full" and torch.is_grad_enabled()
-        for layer_params in params["layers"]:
-            def layer(h, layer_params=layer_params):
-                return layer_forward(layer_params, h, cfg, positions, segments, None, None)[0]
+        for l, layer_params in enumerate(params["layers"]):
+            def layer(h, l=l, layer_params=layer_params):
+                return layer_forward(layer_params, h, cfg, l, positions, segments, None, None)[0]
 
             x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
         return x
@@ -178,9 +181,28 @@ class LM(nn.Module):
     # -- serving ------------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int) -> list:
         return [
-            init_layer_cache(self.cfg, batch, max_len, self.dtype, self.device)
-            for _ in range(self.cfg.n_layers)
+            init_layer_cache(self.cfg, l, batch, max_len, self.dtype, self.device)
+            for l in range(self.cfg.n_layers)
         ]
+
+    @torch.no_grad()
+    def prefill(self, params: Params, tokens: torch.Tensor, max_len: int):
+        """Encode a (B, S) batch of prompts into fresh caches from a zero
+        state; returns (last-token fp32 logits (B, 1, Vp), caches).
+
+        Attention layers take the slot-scatter path with one segment per
+        row and row i's K/V landing in cache row i; SSM layers run the
+        chunked SSD from a zero state and keep its final state."""
+        b, s = tokens.shape
+        caches = self.init_caches(b, max_len)
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        segments = dest_slot = None
+        if self.cfg.uses_attention:
+            segments = torch.ones((b, s), dtype=torch.int32, device=tokens.device)
+            dest_slot = torch.arange(b, dtype=torch.int32, device=tokens.device)[:, None].expand(b, s)
+        x = params["embed"][tokens]
+        x, caches = self._run_stack(params, x, positions, segments, caches, None, dest_slot=dest_slot)
+        return self._logits(params, x[:, -1:]), caches
 
     def prefill_packed(
         self,
@@ -221,6 +243,21 @@ class LM(nn.Module):
         )
         x, caches = self._run_stack(params, x, positions, None, caches, lengths)
         return self._logits(params, x), caches
+
+    @torch.no_grad()
+    def decode_step(
+        self,
+        params: Params,
+        caches: list,
+        tokens: torch.Tensor,  # (B, 1)
+        cache_index,  # scalar (int or 0-d tensor): tokens already cached in every row
+    ):
+        """One decode step with one frontier for the whole batch: the
+        per-slot step with ``cache_index`` broadcast to every row."""
+        lengths = torch.as_tensor(cache_index, dtype=torch.int32, device=tokens.device)
+        if lengths.dim() != 0:
+            raise ValueError(f"cache_index must be a scalar, got shape {tuple(lengths.shape)}")
+        return self.decode_step_slots(params, caches, tokens, lengths.expand(tokens.shape[0]))
 
 
 def shift_labels(

@@ -11,7 +11,8 @@ objective: IDLE ranks contribute zero tokens (Eq. 2 with t_r = 0).
 The data path is the loader's eager epoch, whose step sequence is the one
 the JAX package's streaming executor delivers at its default lookahead.
 Not ported yet: the streaming executor, prefetch, worker processes,
-checkpoints and the per-rank ``dp_shardmap_step``.
+checkpoints and the per-rank ``dp_shardmap_step``.  SSM training is not
+ported either: ``Trainer`` refuses SSM configs.
 """
 
 from __future__ import annotations
@@ -147,6 +148,11 @@ class Trainer:
         opt_cfg: OptimizerConfig | None = None,
         cfg: TrainerConfig | None = None,
     ):
+        if model.cfg.uses_ssm:
+            # The SSD kernel (K7) is forward only; whether SSM training runs
+            # the plain chunked form under autograd or a backward kernel is
+            # not decided yet, so no path trains an SSM stack.
+            raise NotImplementedError(f"SSM training is not ported ({model.cfg.name})")
         self.model = model
         self.loader = loader
         self.opt_cfg = opt_cfg or OptimizerConfig()

@@ -1,5 +1,5 @@
-"""Card-only checks of the port: the CUDA kernels, the engine and a train
-step on the GPU.
+"""Card-only checks of the port: the CUDA kernels, the engine, a train step
+and the SSM model's prefill and decode on the GPU.
 
 Every test here is marked ``cuda`` and skips itself where no CUDA device is
 present (the kernels have no CPU mode).  The file imports neither JAX nor the
@@ -8,7 +8,9 @@ JAX package, so it runs on a machine with the card and PyTorch alone:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: bf16 atol = rtol = 2e-2, fp32 2e-5 (no TF32 anywhere), on rows
-with at least one visible key.
+with at least one visible key.  The SSD kernel (K7) in fp32 at atol 1e-4,
+rtol 1e-3, the JAX package's SSD tolerance (the kernel and the plain version
+sum in other orders and take differences of cumulative sums).
 """
 
 import dataclasses
@@ -21,7 +23,12 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import BucketSpec, OdbConfig
 from repro_torch.data import OnlineDynamicLoader, get_dataset
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.ref import segment_flash_attention_bwd_ref, segment_flash_attention_ref
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.ref import (
+    segment_flash_attention_bwd_ref,
+    segment_flash_attention_ref,
+    ssd_chunked_ref,
+)
 from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves
@@ -191,3 +198,107 @@ def test_train_step_on_card_matches_cpu():
     np.testing.assert_allclose(g_card, g_cpu, rtol=1e-4)
     for a, b in zip(p_card, p_cpu):
         torch.testing.assert_close(a, b, atol=2 * lr, rtol=0)
+
+
+SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype, strided=False, decay=1.0):
+    """x, adt, dt, B, C and an initial state on the card.  With ``strided``,
+    x, B and C are column views of one (B, S, H*P + 2N) tensor, as the model
+    passes them.  ``decay`` scales a (0.02: the state carries over chunks)."""
+    rng = np.random.default_rng(seed)
+
+    def card(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    xbc = card(np.concatenate([rng.standard_normal((b, s, h * p)) * 0.5,
+                               rng.standard_normal((b, s, 2 * n)) * 0.4], axis=-1), dtype)
+    if not strided:
+        xbc = xbc.contiguous()
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    bp, cp = xbc[..., h * p : h * p + n], xbc[..., h * p + n :]
+    if not strided:
+        x, bp, cp = x.contiguous(), bp.contiguous(), cp.contiguous()
+    dt = card(np.log1p(np.exp(rng.standard_normal((b, s, h)))))
+    a = card(-np.exp(rng.standard_normal(h) * 0.3) * decay)
+    init = card(rng.standard_normal((b, h, p, n)) * 0.5)
+    return x, (a[None, None, :] * dt).contiguous(), dt, bp, cp, init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [1.0, 0.02])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 96, 4, 8, 8, 32, False), (1, 256, 2, 16, 32, 64, True),
+                                   (2, 512, 24, 64, 128, 256, True)])
+def test_ssd_kernel_vs_plain(dtype, shape, decay):
+    """K7 against its plain chunked version: y and the final state, from a
+    zero and from a random initial state, on contiguous and strided inputs,
+    with fast and slow decay."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    *dims, strided = shape
+    b, s, h, p, n, chunk = dims
+    x, adt, dt, bp, cp, init = _ssd_inputs(0, b, s, h, p, n, dtype, strided, decay)
+    for initial in (None, init):
+        ssd.reset_launches()
+        y, final = ssd.ssd_scan(x, adt, dt, bp, cp, chunk=chunk, initial_state=initial,
+                                return_final_state=True)
+        ry, rfinal = ssd_chunked_ref(x, adt, dt, bp, cp, chunk, initial)
+        torch.cuda.synchronize()
+        assert ssd.LAUNCHES == {"ssd_scan": 1}
+        assert y.dtype == dtype and final.dtype == torch.float32
+        torch.testing.assert_close(y.float(), ry.float(), **SSD_TOL[dtype])
+        torch.testing.assert_close(final, rfinal, **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_cannot_take():
+    _need_card()
+    x, adt, dt, bp, cp, _ = _ssd_inputs(1, 1, 64, 2, 8, 16, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd.ssd_scan(x.half(), adt, dt, bp.half(), cp.half(), chunk=16)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd.ssd_scan(x, adt, dt, bp, cp, chunk=48)
+    with pytest.raises(ValueError, match=r"\(B, S, N\)"):
+        ssd.ssd_scan(x, adt, dt, bp[:, :32], cp, chunk=16)
+    with pytest.raises(ValueError, match="P <= 64"):
+        wide = torch.zeros((1, 64, 1, 128), device="cuda")
+        ssd.ssd_scan(wide, adt[..., :1].contiguous(), dt[..., :1].contiguous(), bp, cp, chunk=16)
+    with pytest.raises(ValueError, match="contiguous over"):
+        ssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), adt, dt, bp, cp, chunk=16)
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="SSD backward is not ported"):
+        ssd.ssd_scan(x, adt, dt, bp, cp, chunk=16)
+    with torch.no_grad():
+        ssd.ssd_scan(x, adt, dt, bp, cp, chunk=16)
+
+
+@pytest.mark.cuda
+def test_ssm_prefill_decode_on_card_matches_cpu():
+    """Smoke-size fp32 mamba2 on one set of weights: prefill (a full chunk
+    and a padded one, through K7) and eight decode steps (no kernel) on the
+    card against the CPU port (the kernel's plain version)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("mamba2_130m")
+    cpu_model = LM(cfg, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_model = LM(cfg)
+    card_params = card_model.load_params(_to(cpu_params, card_model.device))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, size=(2, 32)))
+    logits = {}
+    for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", card_model, card_params)):
+        ssd.reset_launches()
+        t = tokens.to(model.device)
+        first, caches = model.prefill(params, t[:, :24], 32)
+        prefill_launches = dict(ssd.LAUNCHES)
+        steps = [first]
+        for i in range(24, 32):
+            lg, caches = model.decode_step(params, caches, t[:, i : i + 1], i)
+            steps.append(lg)
+        logits[name] = torch.cat(steps, dim=1).cpu()
+        if name == "cuda":
+            assert prefill_launches == {"ssd_scan": cfg.n_layers}
+            assert ssd.LAUNCHES == {"ssd_scan": cfg.n_layers}  # decode launches none
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-3, rtol=1e-3)

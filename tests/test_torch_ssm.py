@@ -1,0 +1,351 @@
+"""The port's SSM family against the JAX package's, on the CPU.
+
+Same inputs on both sides, made with numpy from a seed; model weights come
+from the JAX ``LM.init`` through ``bridge.params_from_jax``.  On the CPU the
+SSD kernel's wrapper takes its plain chunked version, which is held against
+the Pallas kernel in interpret mode and the JAX chunked and sequential forms.
+
+Tolerances: the SSD in fp32 at atol 1e-4, rtol 1e-3 (the JAX package's own
+SSD tolerance, ``tests/test_kernels.py``: the chunked and sequential forms
+sum in different orders and the chunked form takes differences of
+cumulative sums); bf16 inputs at 2e-2 (y is rounded to bf16 on both sides);
+the SSM block and model logits in fp32 at 1e-4; teacher-forced decode
+against the full forward at 2e-3 (``tests/test_models.py``'s check of the
+JAX model).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.kernels.ref import ssd_scan_ref as jax_ssd_scan_ref
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
+from repro.models import LM as JaxLM
+from repro.models import ssm as jax_ssm
+from repro_torch.bridge import params_from_jax, params_to_jax
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.models import LM, ssm
+from repro_torch.models.blocks import stack_plan
+from repro_torch.serve import ContinuousBatchingEngine, ServeConfig
+from repro_torch.train.trainer import Trainer
+
+SSD_TOL = dict(atol=1e-4, rtol=1e-3)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+TOL = dict(atol=1e-4, rtol=1e-4)
+DECODE_TOL = dict(atol=2e-3, rtol=2e-3)
+
+SSD_SWEEP = [  # (B, S, H, P, N, chunk): the JAX package's sweep
+    (1, 64, 1, 8, 16, 16),
+    (2, 128, 3, 8, 16, 32),
+    (1, 256, 2, 16, 32, 64),
+    (2, 96, 4, 8, 8, 32),
+]
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype=np.float32, decay=1.0):
+    """x, dt, a, B, C as the JAX sweep draws them, in numpy; x, B and C
+    rounded to ``dtype`` (fp32 or bf16).  ``decay`` scales a: at 1 the state
+    forgets in ~20 steps, at 0.02 it carries over chunks."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(h) * 0.3) * decay).astype(np.float32)
+    bp = (rng.standard_normal((b, s, n)) * 0.4).astype(np.float32)
+    cp = (rng.standard_normal((b, s, n)) * 0.4).astype(np.float32)
+    if dtype != np.float32:
+        x, bp, cp = (v.astype(dtype) for v in (x, bp, cp))
+    return x, dt, a, bp, cp
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def test_full_width_config_matches_jax():
+    for ours, theirs in ((get_config("mamba2-130m"), jax_get_config("mamba2_130m")),
+                         (get_smoke_config("mamba2_130m"), jax_smoke_config("mamba2_130m"))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    cfg = get_config("mamba2_130m")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_state, cfg.ssm_headdim,
+            cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_chunk, cfg.d_ff) == (
+        24, 768, 50280, 128, 64, 1536, 24, 256, 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SWEEP)
+def test_ssd_plain_matches_pallas(shape, dtype):
+    """The K7 wrapper's plain version against the Pallas kernel (interpret
+    mode) on the same inputs, zero initial state."""
+    b, s, h, p, n, chunk = shape
+    np_dtype = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    x, dt, a, bp, cp = _ssd_inputs(0, b, s, h, p, n, np_dtype)
+    adt = (a[None, None, :] * dt).astype(np.float32)
+    theirs = jax_ssd_scan(jnp.asarray(x), jnp.asarray(adt), jnp.asarray(dt), jnp.asarray(bp),
+                          jnp.asarray(cp), chunk=chunk, interpret=True)
+    ssd.reset_launches()
+    ours = ssd.ssd_scan(_t(x), _t(adt), _t(dt), _t(bp), _t(cp), chunk=chunk)
+    assert ours.dtype == getattr(torch, dtype) and ssd.LAUNCHES["ssd_scan"] == 0  # CPU: no kernel
+    np.testing.assert_allclose(_np(ours), np.asarray(theirs, np.float32),
+                               **(SSD_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.parametrize("decay", [1.0, 0.02])
+@pytest.mark.parametrize("shape", [(2, 128, 3, 8, 16, 32), (2, 96, 4, 8, 8, 32)])
+def test_ssd_states_match_jax(shape, decay):
+    """``ops.ssd_chunked_scan`` from a random initial state: y and the final
+    state against the JAX ``ssd_chunked`` and the sequential ``ssd_scan_ref``,
+    and the port's own sequential form against the JAX one; with slow decay
+    the initial state reaches the final one."""
+    b, s, h, p, n, chunk = shape
+    x, dt, a, bp, cp = _ssd_inputs(1, b, s, h, p, n, decay=decay)
+    init = (np.random.default_rng(2).standard_normal((b, h, p, n)) * 0.5).astype(np.float32)
+    y, final = ops.ssd_chunked_scan(_t(x), _t(dt), _t(a), _t(bp), _t(cp), chunk=chunk,
+                                    initial_state=_t(init), return_final_state=True)
+    jy, jfinal = jax_ssm.ssd_chunked(x, dt, a, bp, cp, chunk, jnp.asarray(init))
+    ry, rfinal = jax_ssd_scan_ref(x, dt, a, bp, cp, jnp.asarray(init))
+    for ref_y, ref_final in ((jy, jfinal), (ry, rfinal)):
+        np.testing.assert_allclose(_np(y), np.asarray(ref_y), **SSD_TOL)
+        np.testing.assert_allclose(_np(final), np.asarray(ref_final), **SSD_TOL)
+    sy, sfinal = ssd_scan_ref(_t(x), _t(dt), _t(a), _t(bp), _t(cp), _t(init))
+    np.testing.assert_allclose(_np(sy), np.asarray(ry), **SSD_TOL)
+    np.testing.assert_allclose(_np(sfinal), np.asarray(rfinal), **SSD_TOL)
+    # The zero-state call returns y alone.
+    y0 = ops.ssd_chunked_scan(_t(x), _t(dt), _t(a), _t(bp), _t(cp), chunk=chunk)
+    np.testing.assert_allclose(_np(y0), np.asarray(jax_ssm.ssd_chunked(x, dt, a, bp, cp, chunk)[0]),
+                               **SSD_TOL)
+
+
+def test_ssd_wrapper_rejects_what_it_cannot_take():
+    x, dt, a, bp, cp = (_t(v) for v in _ssd_inputs(3, 1, 48, 2, 8, 16))
+    adt = a[None, None, :] * dt
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd.ssd_scan(x, adt, dt, bp, cp, chunk=32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd.ssd_scan(x.half(), adt, dt, bp.half(), cp.half(), chunk=16)
+    with pytest.raises(TypeError, match="adt and dt"):
+        ssd.ssd_scan(x, adt.double(), dt, bp, cp, chunk=16)
+    with pytest.raises(ValueError, match=r"\(B, S, N\)"):
+        ssd.ssd_scan(x, adt, dt, bp[:, :40], cp, chunk=16)
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd.ssd_scan(x, adt, dt, bp, cp, chunk=16, initial_state=torch.zeros(1, 2, 8, 8))
+
+
+# ---------------------------------------------------------------------------
+# Block and model
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    jcfg = jax_smoke_config("mamba2_130m")
+    jmodel = JaxLM(jcfg)
+    jparams = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    cfg = get_smoke_config("mamba2_130m")
+    model = LM(cfg, device="cpu")
+    params = model.load_params(params_from_jax(jparams, cfg, "cpu"))
+    return jcfg, jmodel, jparams, cfg, model, params
+
+
+def _random_cache(rng, cfg, b):
+    state = rng.standard_normal((b, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.d_state)) * 0.3
+    conv = rng.standard_normal((b, cfg.d_conv - 1, cfg.d_inner + 2 * cfg.d_state)) * 0.5
+    return state.astype(np.float32), conv.astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "case", ["no_cache", "prefill_cache", "decode", "fresh_prefill", "fresh_decode"]
+)
+def test_ssm_block_matches_jax(mamba, case):
+    """The mixer against JAX's with no cache, a random cache and a fresh one
+    (the port's fresh cache holds None where JAX's holds zeros)."""
+    jcfg, _, jparams, cfg, _, params = mamba
+    jmixer = jax.tree.map(lambda a: a[0], jparams["stack"]["sub0"]["mixer"])
+    mixer = params["layers"][0]["mixer"]
+    rng = np.random.default_rng(4)
+    b, s = 2, 1 if case.endswith("decode") else 40
+    u = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    cache = jcache = None
+    if case.startswith("fresh"):
+        cache = ssm.init_ssm_cache()
+        jcache = jax_ssm.init_ssm_cache(jcfg, b, jnp.float32)
+    elif case != "no_cache":
+        state, conv = _random_cache(rng, cfg, b)
+        cache = ssm.SSMCache(state=_t(state), conv=_t(conv))
+        jcache = jax_ssm.SSMCache(state=jnp.asarray(state), conv=jnp.asarray(conv))
+    with torch.no_grad():
+        out, new = ssm.apply_ssm_block(mixer, _t(u), cfg, cache)
+    jout, jnew = jax_ssm.apply_ssm_block(jmixer, jnp.asarray(u), jcfg, jcache)
+    np.testing.assert_allclose(_np(out), np.asarray(jout), **TOL)
+    if case == "no_cache":
+        assert new is None and jnew is None
+        return
+    np.testing.assert_allclose(_np(new.state), np.asarray(jnew.state), **TOL)
+    np.testing.assert_allclose(_np(new.conv), np.asarray(jnew.conv), **TOL)
+    assert str(new.state.dtype).removeprefix("torch.") == str(jnew.state.dtype)
+
+
+def test_forward_logits_match_jax(mamba):
+    _, jmodel, jparams, cfg, model, params = mamba
+    tokens = np.random.default_rng(5).integers(1, cfg.vocab_size, size=(2, 48)).astype(np.int32)
+    with torch.no_grad():
+        ours = model.forward(params, {"tokens": torch.from_numpy(tokens).long()})
+        loss, count = model.loss_sums(params, {
+            "tokens": torch.from_numpy(tokens).long(),
+            "labels": torch.from_numpy(np.roll(tokens, -1, axis=1)).long(),
+            "loss_mask": torch.ones(tokens.shape),
+        })
+    theirs = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)})
+    np.testing.assert_allclose(_np(ours), np.asarray(theirs), **TOL)
+    jloss, jcount = jmodel.loss_sums(jparams, {
+        "tokens": jnp.asarray(tokens), "labels": jnp.roll(jnp.asarray(tokens), -1, axis=1),
+        "loss_mask": jnp.ones(tokens.shape),
+    })
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    assert float(count) == float(jcount)
+
+
+def _prefill_decode(model, params, tokens, split, max_len, torch_side):
+    """Prefill tokens[:, :split], then teacher-forced decode of the rest;
+    returns (prefill logits, stacked decode logits, caches)."""
+    if torch_side:
+        t = torch.from_numpy(tokens).long()
+        first, caches = model.prefill(params, t[:, :split], max_len)
+        steps = []
+        for i in range(split, tokens.shape[1]):
+            lg, caches = model.decode_step(params, caches, t[:, i : i + 1], i)
+            steps.append(lg)
+        return _np(first), _np(torch.cat(steps, dim=1)), caches
+    first, caches = model.prefill(params, jnp.asarray(tokens[:, :split]), max_len)
+    decode = jax.jit(model.decode_step)
+    steps = []
+    for i in range(split, tokens.shape[1]):
+        lg, caches = decode(params, caches, jnp.asarray(tokens[:, i : i + 1]), jnp.array(i, jnp.int32))
+        steps.append(lg)
+    return np.asarray(first), np.asarray(jnp.concatenate(steps, axis=1)), caches
+
+
+def test_prefill_and_decode_match_jax(mamba):
+    """Prefill of 24 tokens (one full chunk of 16 and a padded one), then
+    eight decode steps: logits and the SSM caches against JAX's."""
+    _, jmodel, jparams, cfg, model, params = mamba
+    tokens = np.random.default_rng(6).integers(1, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    first, dec, caches = _prefill_decode(model, params, tokens, 24, 32, True)
+    jfirst, jdec, jcaches = _prefill_decode(jmodel, jparams, tokens, 24, 32, False)
+    np.testing.assert_allclose(first, jfirst, **TOL)
+    np.testing.assert_allclose(dec, jdec, **TOL)
+    jstack = jcaches["stack"]["sub0"]
+    for l, cache in enumerate(caches):
+        np.testing.assert_allclose(_np(cache.state), np.asarray(jstack.state[l]), **TOL)
+        np.testing.assert_allclose(_np(cache.conv), np.asarray(jstack.conv[l]), **TOL)
+
+
+@pytest.mark.parametrize("split", [8, 20])
+def test_decode_matches_forward(mamba, split):
+    """Teacher-forced decode reproduces the full forward (the JAX package's
+    consistency check, here on the port alone)."""
+    _, _, _, cfg, model, params = mamba
+    tokens = np.random.default_rng(7).integers(1, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    with torch.no_grad():
+        full = _np(model.forward(params, {"tokens": torch.from_numpy(tokens).long()}))
+    first, dec, _ = _prefill_decode(model, params, tokens, split, 32, True)
+    vp = first.shape[-1]
+    np.testing.assert_allclose(first[:, 0], full[:, split - 1, :vp], **DECODE_TOL)
+    np.testing.assert_allclose(dec, full[:, split:, :vp], **DECODE_TOL)
+
+
+def test_qwen3_prefill_and_decode_match_jax():
+    """The attention family through the same two entry points: slot-scatter
+    prefill with one segment per row, per-slot decode at one frontier."""
+    jcfg = jax_smoke_config("qwen3_0_6b")
+    jmodel = JaxLM(jcfg)
+    jparams = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(1)))
+    cfg = get_smoke_config("qwen3_0_6b")
+    model = LM(cfg, device="cpu")
+    params = model.load_params(params_from_jax(jparams, cfg, "cpu"))
+    tokens = np.random.default_rng(8).integers(1, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    first, dec, _ = _prefill_decode(model, params, tokens, 16, 32, True)
+    jfirst, jdec, _ = _prefill_decode(jmodel, jparams, tokens, 16, 32, False)
+    np.testing.assert_allclose(first, jfirst, **TOL)
+    np.testing.assert_allclose(dec, jdec, **TOL)
+
+
+def test_bridge_round_trip(mamba):
+    _, _, jparams, cfg, _, params = mamba
+    layer = params["layers"][0]
+    assert set(layer) == {"norm_mixer", "mixer"}  # no FFN group
+    assert set(layer["mixer"]) == {"in_z", "in_x", "in_b", "in_c", "in_dt", "conv_w", "dt_bias",
+                                   "a_log", "d_skip", "out_norm", "out_proj"}
+    for name, leaf in layer["mixer"].items():
+        assert leaf.dtype == torch.float32, name  # the smoke config is fp32
+    back = params_to_jax(params, cfg)
+    flat, tree = jax.tree.flatten(back)
+    jflat, jtree = jax.tree.flatten(jparams)
+    assert tree == jtree
+    for a, b in zip(flat, jflat):
+        np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+
+
+def test_bridge_keeps_bf16_and_fp32_leaves():
+    """At the model's bf16 the projections stay bf16 and a_log, dt_bias,
+    d_skip fp32, as the JAX package keeps them."""
+    jcfg = dataclasses.replace(jax_smoke_config("mamba2_130m"), dtype="bfloat16")
+    jparams = jax.tree.map(np.asarray, JaxLM(jcfg).init(jax.random.PRNGKey(2)))
+    cfg = dataclasses.replace(get_smoke_config("mamba2_130m"), dtype="bfloat16")
+    mixer = params_from_jax(jparams, cfg, "cpu")["layers"][1]["mixer"]
+    for name, leaf in mixer.items():
+        want = torch.float32 if name in ("a_log", "dt_bias", "d_skip") else torch.bfloat16
+        assert leaf.dtype == want, name
+    np.testing.assert_array_equal(
+        _np(mixer["in_x"]), np.asarray(jparams["stack"]["sub0"]["mixer"]["in_x"][1], np.float32))
+
+
+# ---------------------------------------------------------------------------
+# What the port refuses, as the JAX package does
+# ---------------------------------------------------------------------------
+
+
+def test_engine_refuses_ssm():
+    model = LM(get_smoke_config("mamba2_130m"), device="cpu")
+    with pytest.raises(NotImplementedError, match="GQA-attention"):
+        ContinuousBatchingEngine(model, None, ServeConfig(num_slots=2, max_len=64, l_max=128),
+                                 device="cpu")
+
+
+def test_slot_scatter_prefill_refuses_ssm(mamba):
+    _, _, _, cfg, model, params = mamba
+    caches = model.init_caches(1, 16)
+    tokens = torch.ones((1, 8), dtype=torch.long)
+    zeros = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="per-request prefill"):
+        model.prefill_packed(params, caches, tokens, zeros, zeros + 1, zeros)
+
+
+def test_trainer_refuses_ssm():
+    with pytest.raises(NotImplementedError, match="SSM training is not ported"):
+        Trainer(LM(get_smoke_config("mamba2_130m"), device="cpu"), loader=None)
+
+
+@pytest.mark.parametrize("family", ["hybrid", "moe"])
+def test_stack_plan_refuses_hybrid_and_moe(family):
+    if family == "hybrid":
+        cfg = dataclasses.replace(get_smoke_config("mamba2_130m"), family="hybrid", attn_period=2)
+    else:
+        cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"), family="moe", n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        stack_plan(cfg)
