@@ -16,10 +16,15 @@ source, in parallel), then runs:
                against the same tables built on the CPU;
 3. backward  — the four backward kernels, dQ and dK/dV of the dense (K2, K3)
                and pruned (K5, K6) grids, at the serving shapes, at the first
-               training step's packed shape and at S = 200 (block 40), in bf16
-               and fp32: each against the plain backward on valid rows at the
-               tolerances above, K5 == K2 and K6 == K3 with ``torch.equal``,
-               and exactly zero gradients on all-padding rows;
+               training step's packed shape, at S = 200 (block 40), with a
+               peaked softmax (q x 4 at 2 x 1024: P near one-hot and large
+               dS terms that cancel in dK, where the bf16 dK/dV kernel's
+               rounding of P and dS costs most), with a GQA
+               group of 8 (16 q heads over 2 kv heads, 2 x 512) and at d_head
+               64 (3 x 96, block 96), in bf16 and fp32: each against the
+               plain backward on valid rows at the tolerances above, K5 == K2
+               and K6 == K3 with ``torch.equal``, and exactly zero gradients
+               on all-padding rows;
 4. serving   — ``ContinuousBatchingEngine`` on full-width Qwen3-0.6B in bf16
                (random weights from seed 0) with the launcher's defaults; every
                request must finish, K4 must launch 28 times per prefill call and
@@ -53,7 +58,8 @@ source, in parallel), then runs:
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
-               the bound; K7 at (8, 2048) and (1, 32768) in bf16 beside its
+               the bound, each kernel's share of its bound and its ratio to
+               the yardstick; K7 at (8, 2048) and (1, 32768) in bf16 beside its
                plain version and its bound (no PyTorch call computes the SSD);
 9. kernels   — one JSON line with every ported kernel.
 
@@ -179,15 +185,15 @@ def phase_build():
                 print(f"[build] {line.strip()}")
 
 
-def make_case(rng, seg, dtype):
+def make_case(rng, seg, dtype, heads=HEADS, kv_heads=KV_HEADS, d_head=D_HEAD):
     """q, k, v from the seed for the (rows, cap) numpy segment ids ``seg``."""
     import numpy as np
     import torch
 
     rows, cap = seg.shape
     qkv = [
-        torch.from_numpy(rng.standard_normal((rows, cap, n, D_HEAD), dtype=np.float32)).to("cuda", dtype)
-        for n in (HEADS, KV_HEADS, KV_HEADS)
+        torch.from_numpy(rng.standard_normal((rows, cap, n, d_head), dtype=np.float32)).to("cuda", dtype)
+        for n in (heads, kv_heads, kv_heads)
     ]
     return (*qkv, torch.from_numpy(seg).cuda())
 
@@ -246,15 +252,17 @@ def training_segments():
     return global_batch_arrays(first.batches, loader.layout)["segments"]
 
 
-def bwd_case(rng, seg, dtype):
-    """Inputs of one backward call: q, k, v, seg, and the forward's out and
-    lse (from K1), and a cotangent do."""
+def bwd_case(rng, seg, dtype, q_scale=1.0, **widths):
+    """Inputs of one backward call: q (times ``q_scale``), k, v, seg, and the
+    forward's out and lse (from K1), and a cotangent do; ``widths`` override
+    make_case's heads, kv_heads and d_head."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v, seg_t = make_case(rng, seg, dtype)
+    q, k, v, seg_t = make_case(rng, seg, dtype, **widths)
+    q = (q.float() * q_scale).to(dtype)
     blk = fa.select_block(seg.shape[1], 128)
     out, lse = fa.segment_flash_attention(q, k, v, seg_t, block_q=blk, block_kv=blk, return_lse=True)
     do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to("cuda", dtype)
@@ -270,12 +278,16 @@ def phase_backward(rng, train_seg):
     from repro_torch.kernels.ref import segment_flash_attention_bwd_ref
 
     max_err = {name: 0.0 for pair in BWD_PAIRS for name in pair}
-    cases = [packed_segments(rng, rows, cap) for rows, cap in SHAPES]
-    cases += [train_seg, packed_segments(rng, 3, 200)]  # the training step; block 40
-    for seg_np in cases:
+    cases = [("", packed_segments(rng, rows, cap), {}) for rows, cap in SHAPES]
+    cases += [("training step", train_seg, {}), ("block 40", packed_segments(rng, 3, 200), {}),
+              # P near one-hot, large dS terms cancelling in dK: bf16 rounding at its worst
+              ("peaked q x4", packed_segments(rng, 2, 1024), dict(q_scale=4.0)),
+              ("group 8", packed_segments(rng, 2, 512), dict(kv_heads=2)),  # 16 q heads over 2
+              ("d_head 64", packed_segments(rng, 3, 96), dict(d_head=64))]  # block 96
+    for label, seg_np, extra in cases:
         rows, cap = seg_np.shape
         for tname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            args, blk = bwd_case(rng, seg_np, dtype)
+            args, blk = bwd_case(rng, seg_np, dtype, **extra)
             kw = dict(block_q=blk, block_kv=blk)
             dense = fa.segment_flash_attention_bwd(*args, **kw)
             pruned = fa.segment_flash_attention_bwd_pruned(*args, **kw)
@@ -298,7 +310,9 @@ def phase_backward(rng, train_seg):
                     for name in (dense_name, pruned_name):
                         max_err[name] = max(max_err[name], max(errs))
                 print(f"[backward] {dense_name} == {pruned_name} bit-exact rows={rows} cap={cap} block={blk} "
-                      f"{tname}: max_abs_err vs plain {max(errs):.3g} (tol {tol}), padding rows zero")
+                      f"heads={args[0].shape[2]}/{args[1].shape[2]} d_head={args[0].shape[3]}"
+                      f"{' (' + label + ')' if label else ''} {tname}: max_abs_err vs plain "
+                      f"{max(errs):.3g} (tol {tol}), padding rows zero")
             del args, dense, pruned, plain
     torch.cuda.empty_cache()
     return max_err
@@ -681,7 +695,8 @@ def phase_times_training(rng, train_seg) -> dict:
         print(f"[times] {name} rows={rows} cap={cap} block={blk} bf16 (training step 1): kernel_ms "
               f"{ms:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
               f"{r['bound_ms']:.5f} ({bound_by}) live tiles {live} "
-              f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+              f"achieved {flops / ms / 1e9:.2f} TFLOP/s, bound share {r['bound_ms'] / ms:.4f}, "
+              f"kernel/library {ms / r['library_ms']:.3f}")
     return dict(result, shape=[rows, cap, HEADS, KV_HEADS, D_HEAD], block=blk, live_tiles=live)
 
 

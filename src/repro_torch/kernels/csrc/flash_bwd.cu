@@ -30,8 +30,8 @@
 // Each pruned kernel visits the live tiles of its dense twin in the same
 // order with the same tile routine, and every rounding step is an explicit
 // intrinsic, so K5 == K2 and K6 == K3 bit for bit.  There are no row
-// reductions in the backward (delta comes in precomputed), so every output
-// element is one sequential fma chain.
+// reductions in the backward (delta comes in precomputed); on the CUDA-core
+// route every output element is one sequential fma chain.
 //
 // Masking contract (the forward's): key j is visible to query i iff
 // (causal => j <= i, by absolute row position) and segment ids match with the
@@ -39,27 +39,67 @@
 // row with no visible key (lse = NEG_INF) gives exactly zero dq and adds
 // nothing to dk/dv.
 //
-// Shared memory and the pinned blocks: a (128 x 128) tile pair at d_head 128
-// needs q, dO, k, v and a score tile, ~330 KB in fp32, above the 227 KB a
-// block may use.  So a thread block owns kRows = 32 rows of its stationary
-// block (a sub-range of the pinned q block for dQ, of the kv block for
-// dK/dV) and all rows of the moving block.  Each row's sums are independent
-// of the other rows, so the liveness tables, the visiting order and every
-// row's arithmetic stay those of the pinned (block_q, block_kv) pair; the
-// dense kernels test liveness on the whole pinned blocks.
+// Two routes, chosen by the dtype (no switch):
+//
+// fp32 (all four kernels) and the bf16 dQ pass (K2, K5) run the CUDA-core
+// loop below.  A (128 x 128) tile pair at d_head 128 needs q, dO, k, v and a
+// score tile, ~330 KB in fp32, above the 227 KB a block may use, so a block
+// owns kRows = 32 rows of its stationary block (a sub-range of the pinned q
+// block for dQ, of the kv block for dK/dV) and all rows of the moving block;
+// each thread keeps a 2 x 8 register micro-tile and every product is an
+// fp32 fma chain (no TF32), so fp32 stays the exact rail (2e-5).  Each
+// row's sums are independent of the other rows, so the liveness tables, the
+// visiting order and every row's arithmetic stay those of the pinned
+// (block_q, block_kv) pair.
+//
+// bf16 dK/dV (K3, K6; namespace tc) runs on the tensor cores:
+//
+// * Tile ownership.  One 256-thread block per (whole pinned kv tile of up to
+//   128 rows, kv head, batch row): 48 x 8 x 2 = 768 blocks at the training
+//   shape.  Warp w owns kv rows 16w .. 16w+15 (warps past the tile idle).
+//   K and V are copied once and stay in shared memory in bf16.
+// * The ring.  Each (group member, q block) step's q rows, dO rows, lse,
+//   delta and q segment ids go through a two-stage ring, filled by cp.async
+//   (16-byte copies; so D % 8 == 0 and 16-byte aligned rows, which the
+//   wrapper checks): the next live step's copies are issued before this
+//   step's math, and two barriers a step hand the stages over.  211,968
+//   bytes at d_head 128, one block per SM.
+// * Padding.  Tile rows are D rounded up to 16 plus 8 bf16, a pitch of 4
+//   banks modulo 32, so ldmatrix reads without bank conflicts.  Shared
+//   memory is zeroed once; the copies fill rows < block and columns < D, so
+//   the tails up to the MMA granularity stay 0 (masked entries are 0 x 0).
+// * Products.  mma.sync.m16n8k16 bf16 -> fp32.  Per 32-column chunk of the
+//   q block: S^T = K.Q^T and dP^T = V.dO^T (K, V as the A operand, the q
+//   rows as the column-major B operand, both by ldmatrix); P^T and
+//   scale.dS^T formed in the accumulator registers under the forward's
+//   mask; then, FlashAttention-2's reuse, two adjacent n8 accumulator tiles
+//   are one k16 A fragment: dV += P^T.dO and dK += (scale.dS)^T.Q with dO
+//   and Q by ldmatrix.trans.  P and dS never touch shared memory; dK and dV
+//   stay in fp32 registers over all steps and are written once, in bf16,
+//   for the tile's rows.  Registers: 128 for dK/dV and 32 for the chunk's
+//   S^T/dP^T (a 64-column chunk spills).
+// * Rounding.  P is rounded to bf16 (P is in [0, 1] and dV's terms do not
+//   cancel).  scale.dS is split into hi = rn(x) and lo = rn(x - hi), two
+//   bf16 terms and two products: its terms are large and cancel in dK, and
+//   one bf16 term leaves the 2e-2 tolerance on a peaked softmax (q x 4).
+// * Liveness.  K6 walks the column tables; K3 tests each q block with the
+//   _block_live rule, the segment ranges reduced by each warp with
+//   __reduce_min/max_sync (seg_range's result), so no thread waits on one.
+//
+// K6 == K3 still holds bit for bit: both visit the same live steps in the
+// same order through one step routine, and mma.sync's sums are
+// deterministic for the same operands.
 //
 // What bounds it on the H100 at the training shapes (two packed rows of up to
 // 6144 tokens, 16 q heads over 8 kv heads, d_head 128, bf16): the live
 // tiles' work is ~6 bq.bkv.D FLOPs (dQ) and ~8 bq.bkv.D (dK/dV) per
 // (row, q-head, tile), hundreds of GFLOP per layer, so by the card's peak
-// rates the passes are bound by operations, not bytes.  These kernels reach
-// neither peak: the products run on the CUDA cores in fp32 (no tensor cores,
-// no TF32), each thread keeps a 2 x 8 register micro-tile (the stationary
-// rows are broadcast from shared memory, the moving rows are read from
-// padded rows so the strided reads hit distinct banks), and a ~180 KB block
-// runs one per SM.  Tensor-core products (wgmma), TMA loads and a pipelined
-// ring of moving tiles are the next steps; they change the summation order,
-// so they must land in both kernels of a pair at once.
+// rates the passes are bound by operations, not bytes.  The CUDA-core route
+// reaches ~1 % of the tensor-core rate.  The bf16 dK/dV route is held back
+// by shared-memory traffic (each warp reads the whole q tile by ldmatrix, so
+// the eight warps read it eight times) and by latency: one 8-warp block per
+// SM, synchronous ldmatrix -> mma chains.  wgmma with TMA, and a dQ pass on
+// the tensor cores, are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -486,6 +526,426 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_rows(dv + x_off, kv_stride, R, D, acc_v);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 dK/dV pass on the tensor cores (K3 and K6 when the inputs are
+// bf16; see the note at the head of the file).
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kTileRows = 128;            // kv rows of a block: a whole pinned tile
+constexpr int kChunk = 32;                // q columns of one register chunk
+constexpr int kChunkTiles = kChunk / 8;   // n8 accumulator tiles of a chunk
+constexpr int kDimTiles = kMaxHeadDim / 8;  // n8 accumulator tiles of dK (and dV)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Rows of every shared tile hold D rounded up to the MMA depth (16), plus 8
+// bf16 of padding: the row pitch is then 4 banks modulo 32, so the eight
+// 16-byte rows of one ldmatrix matrix hit eight distinct bank quads.
+__host__ __device__ __forceinline__ int padded_dim(int D) { return (D + 15) & ~15; }
+__host__ __device__ __forceinline__ int pitch(int D) { return padded_dim(D) + 8; }
+
+// Byte offsets into the block's dynamic shared memory: the K and V tiles,
+// then two ring stages of stage_bytes each (q rows, dO rows, lse, delta and
+// the q rows' segment ids).  Plain scalars, so nothing is indexed at run
+// time and nothing lands in local memory.
+struct Layout {
+  unsigned tile, v, ring, stage_bytes, o, lse, delta, seg, total;
+};
+
+__host__ __device__ __forceinline__ Layout layout(int D) {
+  Layout L;
+  L.tile = kTileRows * pitch(D) * 2;
+  const unsigned stat = kTileRows * 4;
+  L.v = L.tile;
+  L.ring = 2 * L.tile;
+  L.o = L.tile;  // within a stage; the q rows start at 0
+  L.lse = 2 * L.tile;
+  L.delta = L.lse + stat;
+  L.seg = L.delta + stat;
+  L.stage_bytes = L.seg + stat;
+  L.total = L.ring + 2 * L.stage_bytes;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group (the one just issued) is in flight.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16 x 16, row-major) . b (16 x 8, column-major): bf16 in, fp32 sum.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to nearest bf16, x in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x, y) as two bf16 pairs whose sum carries 16 mantissa bits: hi rounds
+// (x, y) to nearest, lo rounds what hi left over.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y));
+}
+
+// (lo, hi) of the positive segment ids of `n` positions, reduced over the
+// warp (lo = kSegBig when there is none): every lane gets seg_range's result.
+__device__ __forceinline__ void warp_seg_range(const int* __restrict__ ids, int n, int& lo,
+                                               int& hi) {
+  int l = kSegBig, h = 0;
+  for (int i = threadIdx.x % 32; i < n; i += 32) {
+    const int id = ids[i];
+    h = max(h, id);
+    if (id > 0) l = min(l, id);
+  }
+  lo = __reduce_min_sync(0xffffffffu, l);
+  hi = __reduce_max_sync(0xffffffffu, h);
+}
+
+// One ring stage: what one step of the walk copies in and reads.
+struct Stage {
+  __nv_bfloat16* q;  // [kTileRows][pitch] the q block's rows of head h
+  __nv_bfloat16* o;  // [kTileRows][pitch] the same rows of dO
+  float* lse;        // [kTileRows]
+  float* delta;      // [kTileRows]
+  int* seg;          // [kTileRows] the q rows' segment ids
+};
+
+// One (group member, q block) step for this warp's 16 kv rows r0 .. r0+15:
+// acc_v += P^T . dO and acc_k += (scale dS)^T . Q, the q block taken in
+// chunks of kChunk columns.  Per chunk: S^T = K . Q^T and dP^T = V . dO^T
+// on the tensor cores (K, V as the row-major A operand, the q rows as the
+// column-major B operand, both by ldmatrix); P^T and scale dS^T in the
+// accumulator registers under the mask; then those registers are the A
+// operand of the second products (two adjacent n8 accumulator tiles are one
+// k16 A fragment) against dO and Q by ldmatrix.trans: P rounded to bf16,
+// scale dS as two bf16 terms (hi, lo), one product each.
+__device__ __forceinline__ void dkv_step(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                         const Stage& st, int pitch_, int dpad, int R, int bq,
+                                         int k_pos0, int q_pos0, bool causal, bool has_seg,
+                                         const int (&kseg)[2], float scale,
+                                         float (&acc_k)[kDimTiles][4],
+                                         float (&acc_v)[kDimTiles][4]) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const int g = lane / 4, tig = lane % 4;
+  // ldmatrix.x4 row addresses.  A operand (and the trans B operand): the four
+  // matrices are (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
+  // Plain B operand: (rows 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15),
+  // i.e. the k halves of two n8 tiles.
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  const uint32_t k_addr = smem_addr(ks + (r0 + a_row) * pitch_ + a_col);
+  const uint32_t v_addr = smem_addr(vs + (r0 + a_row) * pitch_ + a_col);
+  const uint32_t q_addr = smem_addr(st.q + b_row * pitch_ + b_col);
+  const uint32_t o_addr = smem_addr(st.o + b_row * pitch_ + b_col);
+  const uint32_t qt_addr = smem_addr(st.q + a_row * pitch_ + a_col);
+  const uint32_t ot_addr = smem_addr(st.o + a_row * pitch_ + a_col);
+  const uint32_t row_bytes = 2u * pitch_;
+  const float scale_log2 = __fmul_rn(scale, kLog2e);
+
+  for (int c0 = 0; c0 < bq; c0 += kChunk) {
+    float s[kChunkTiles][4], dp[kChunkTiles][4];
+#pragma unroll
+    for (int j = 0; j < kChunkTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+
+    for (int kk = 0; kk < dpad; kk += 16) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, k_addr + 2 * kk);
+      ldsm_x4(av, v_addr + 2 * kk);
+#pragma unroll
+      for (int j = 0; j < kChunkTiles / 2; ++j) {
+        const uint32_t off = (c0 + 16 * j) * row_bytes + 2 * kk;
+        uint32_t bq_frag[4], bo_frag[4];
+        ldsm_x4(bq_frag, q_addr + off);
+        ldsm_x4(bo_frag, o_addr + off);
+        mma_bf16(s[2 * j], ak, bq_frag[0], bq_frag[1]);
+        mma_bf16(s[2 * j + 1], ak, bq_frag[2], bq_frag[3]);
+        mma_bf16(dp[2 * j], av, bo_frag[0], bo_frag[1]);
+        mma_bf16(dp[2 * j + 1], av, bo_frag[2], bo_frag[3]);
+      }
+    }
+
+    // A warp's 16 x kChunk piece that the mask cannot touch (all its rows
+    // and columns inside the blocks, every key at or before every query, one
+    // positive segment throughout) skips the per-element test; the
+    // arithmetic is the same.
+    bool open = r0 + 16 <= R && c0 + kChunk <= bq &&
+                (!causal || k_pos0 + r0 + 15 <= q_pos0 + c0);
+    if (open && has_seg) {
+      const int id = __shfl_sync(0xffffffffu, kseg[0], 0);
+      bool same = kseg[0] == id && kseg[1] == id && id > 0;
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j)
+        same = same && st.seg[c0 + 8 * j + 2 * tig] == id && st.seg[c0 + 8 * j + 2 * tig + 1] == id;
+      open = __all_sync(0xffffffffu, same);
+    }
+
+    // Accumulator element e of tile j: kv row r0 + g (+8 for e >= 2), q
+    // column c0 + 8j + 2 tig (+1 for odd e).  P is built from the mask,
+    // never from exp(S - NEG_INF).
+    auto p_ds = [&](float& s_, float& dp_, int c) {  // a visible entry
+      s_ = exp2f(__fmaf_rn(s_, scale_log2, -__fmul_rn(st.lse[c], kLog2e)));
+      dp_ = __fmul_rn(__fmul_rn(s_, __fsub_rn(dp_, st.delta[c])), scale);
+    };
+    if (open) {
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p_ds(s[j][e], dp[j][e], c0 + 8 * j + 2 * tig + (e & 1));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + (e >> 1) * 8;
+          const int c = c0 + 8 * j + 2 * tig + (e & 1);
+          bool ok = r < R && c < bq;
+          if (causal) ok = ok && k_pos0 + r <= q_pos0 + c;
+          if (has_seg) ok = ok && kseg[e >> 1] > 0 && st.seg[c] == kseg[e >> 1];
+          if (ok) {
+            p_ds(s[j][e], dp[j][e], c);
+          } else {
+            s[j][e] = 0.f;
+            dp[j][e] = 0.f;
+          }
+        }
+    }
+
+#pragma unroll
+    for (int j = 0; j < kChunkTiles / 2; ++j) {
+      if (c0 + 16 * j >= bq) break;  // the rest of the chunk is past the q block
+      const uint32_t ap[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      uint32_t ads[4], ads_lo[4];
+      split_bf16(dp[2 * j][0], dp[2 * j][1], ads[0], ads_lo[0]);
+      split_bf16(dp[2 * j][2], dp[2 * j][3], ads[1], ads_lo[1]);
+      split_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1], ads[2], ads_lo[2]);
+      split_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3], ads[3], ads_lo[3]);
+      const uint32_t off = (c0 + 16 * j) * row_bytes;
+#pragma unroll
+      for (int n = 0; n < kDimTiles / 2; ++n) {
+        if (16 * n < dpad) {
+          uint32_t bo_frag[4], bq_frag[4];
+          ldsm_x4_trans(bo_frag, ot_addr + off + 32 * n);
+          ldsm_x4_trans(bq_frag, qt_addr + off + 32 * n);
+          mma_bf16(acc_v[2 * n], ap, bo_frag[0], bo_frag[1]);
+          mma_bf16(acc_v[2 * n + 1], ap, bo_frag[2], bo_frag[3]);
+          mma_bf16(acc_k[2 * n], ads, bq_frag[0], bq_frag[1]);
+          mma_bf16(acc_k[2 * n + 1], ads, bq_frag[2], bq_frag[3]);
+          mma_bf16(acc_k[2 * n], ads_lo, bq_frag[0], bq_frag[1]);
+          mma_bf16(acc_k[2 * n + 1], ads_lo, bq_frag[2], bq_frag[3]);
+        }
+      }
+    }
+  }
+}
+
+// dK/dV in bf16: one block per (whole pinned kv tile, kv head, batch row);
+// warp w owns kv rows 16w .. 16w+15 of the tile.
+template <bool kPruned>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                            const int* __restrict__ q_idx, const int* __restrict__ q_count,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                            int S, int H, int KV, int D, int bq, int bkv, int causal,
+                            float scale) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const Layout L = layout(D);
+  const int kb = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KV;
+  const int nq = S / bq, nk = S / bkv;
+  const int k0 = kb * bkv;
+  const int R = bkv;
+  const bool has_seg = seg != nullptr;
+  const int tid = threadIdx.x;
+  const int pitch_ = pitch(D), dpad = padded_dim(D), d8 = D / 8;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.v);
+
+  // Zero everything once: the copies below fill only rows < bkv (bq) and
+  // columns < D, so the tails up to the MMA granularity stay zero (masked
+  // entries are then 0 x 0, never 0 x garbage).
+  for (unsigned i = tid; i < L.total / 16; i += kThreads)
+    reinterpret_cast<uint4*>(tc_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const size_t kv_off = (row0 + k0) * kv_stride + static_cast<size_t>(kvh) * D;
+  for (int idx = tid; idx < R * d8; idx += kThreads) {
+    const int r = idx / d8, c = (idx - r * d8) * 8;
+    cp_async16(ks + r * pitch_ + c, k + kv_off + r * kv_stride + c);
+    cp_async16(vs + r * pitch_ + c, v + kv_off + r * kv_stride + c);
+  }
+
+  // This thread's two kv rows' segment ids, and (dense liveness) the whole
+  // pinned kv tile's segment range, reduced by each warp.
+  const int my_row = (tid / 32) * 16 + (tid % 32) / 4;
+  int kseg[2] = {0, 0};
+  if (has_seg)
+    for (int i = 0; i < 2; ++i)
+      if (my_row + 8 * i < R) kseg[i] = seg[row0 + k0 + my_row + 8 * i];
+  int k_lo = kSegBig, k_hi = 0;
+  if (!kPruned && has_seg) warp_seg_range(seg + row0 + k0, bkv, k_lo, k_hi);
+
+  // The walk: (group member, q block) pairs, members first, q blocks
+  // ascending; the dense kernel skips the dead ones by the _block_live rule.
+  const int col_tables = b * nk + kb;
+  const int n_steps = kPruned ? q_count[col_tables] : nq;
+  const int total = group * n_steps;
+  auto q_block = [&](int t) {
+    const int i = t % n_steps;
+    return kPruned ? q_idx[static_cast<size_t>(col_tables) * nq + i] : i;
+  };
+  auto next_live = [&](int t) {
+    if (kPruned) return t;
+    for (; t < total; ++t) {
+      const int q0 = q_block(t) * bq;
+      bool ok = !causal || q0 + bq - 1 >= k0;
+      if (ok && has_seg) {
+        int q_lo, q_hi;
+        warp_seg_range(seg + row0 + q0, bq, q_lo, q_hi);
+        ok = q_hi > 0 && k_hi > 0 && q_hi >= k_lo && k_hi >= q_lo;
+      }
+      if (ok) break;
+    }
+    return t;
+  };
+  auto stage = [&](int s) {
+    unsigned char* base = tc_smem + L.ring + s * L.stage_bytes;
+    return Stage{reinterpret_cast<__nv_bfloat16*>(base),
+                 reinterpret_cast<__nv_bfloat16*>(base + L.o),
+                 reinterpret_cast<float*>(base + L.lse),
+                 reinterpret_cast<float*>(base + L.delta),
+                 reinterpret_cast<int*>(base + L.seg)};
+  };
+  auto issue = [&](int t, int s) {  // cp.async the step's q rows into stage s
+    const int h = kvh * group + t / n_steps;
+    const int q0 = q_block(t) * bq;
+    const Stage st = stage(s);
+    const size_t off = (row0 + q0) * q_stride + static_cast<size_t>(h) * D;
+    for (int idx = tid; idx < bq * d8; idx += kThreads) {
+      const int r = idx / d8, c = (idx - r * d8) * 8;
+      cp_async16(st.q + r * pitch_ + c, q + off + r * q_stride + c);
+      cp_async16(st.o + r * pitch_ + c, dout + off + r * q_stride + c);
+    }
+    for (int i = tid; i < bq; i += kThreads) {
+      const size_t pos = row0 + q0 + i;
+      cp_async4(st.lse + i, lse + pos * H + h);
+      cp_async4(st.delta + i, delta + pos * H + h);
+      if (has_seg) cp_async4(st.seg + i, seg + pos);
+    }
+  };
+
+  float acc_k[kDimTiles][4], acc_v[kDimTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDimTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[n][e] = 0.f;
+      acc_v[n][e] = 0.f;
+    }
+
+  // A two-stage ring: step t's copies are in flight while step t-1 computes.
+  int t = next_live(0);
+  if (t < total) issue(t, 0);
+  cp_async_commit();  // with the K/V tile
+  for (int s = 0; t < total; s ^= 1) {
+    const int t_next = next_live(t + 1);
+    if (t_next < total) issue(t_next, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    if ((tid / 32) * 16 < R)
+      dkv_step(ks, vs, stage(s), pitch_, dpad, R, bq, k0, q_block(t) * bq, causal != 0, has_seg,
+               kseg, scale, acc_k, acc_v);
+    __syncthreads();  // stage s is refilled by the next iteration's copies
+    t = t_next;
+  }
+  cp_async_wait_all();
+
+  // dK and dV leave once, in bf16, for the tile's rows only.
+  const int g = (tid % 32) / 4, tig = tid % 4;
+  const int r0 = (tid / 32) * 16;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= R) continue;
+    const size_t row_off = kv_off + r * kv_stride;
+#pragma unroll
+    for (int n = 0; n < kDimTiles; ++n) {
+      const int c = 8 * n + 2 * tig;
+      if (c < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + row_off + c) =
+            __floats2bfloat162_rn(acc_k[n][2 * half], acc_k[n][2 * half + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row_off + c) =
+            __floats2bfloat162_rn(acc_v[n][2 * half], acc_v[n][2 * half + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 bool bad_shape(int S, int H, int KV, int D, int bq, int bkv) {
   return bq < 1 || bkv < 1 || bq > kMaxBlock || bkv > kMaxBlock || D < 1 ||
          D > kMaxHeadDim || S % bq != 0 || S % bkv != 0 || KV < 1 ||
@@ -538,6 +998,30 @@ int launch_dkv(int device, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 dK/dV pass: 16-byte copies need D % 8 == 0 and 16-byte aligned
+// q, k, v and dO (the wrapper checks both and raises first).
+template <bool kPruned>
+int launch_dkv_tc(int device, const void* q, const void* k, const void* v, const int* seg,
+                  const int* q_idx, const int* q_count, const void* dout, const float* lse,
+                  const float* delta, void* dk, void* dv, int B, int S, int H, int KV, int D,
+                  int bq, int bkv, int causal, float scale, void* stream) {
+  const void* ptrs[] = {q, k, v, dout, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tc::layout(D).total;
+  auto kernel = tc::flash_bwd_dkv_tc_kernel<kPruned>;
+  cudaError_t err = prepare(device, kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(S / bkv, KV, B);
+  using bf16 = __nv_bfloat16;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
+      q_idx, q_count, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, H, KV, D, bq, bkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kPruned>
 int dispatch_dq(int dtype, int device, const void* q, const void* k,
                 const void* v, const int* seg, const int* kv_idx,
@@ -569,11 +1053,10 @@ int dispatch_dkv(int dtype, int device, const void* q, const void* k,
     return launch_dkv<float, kPruned>(device, q, k, v, seg, q_idx, q_count,
                                       dout, lse, delta, dk, dv, B, S, H, KV,
                                       D, bq, bkv, causal, scale, stream);
-  if (dtype == 1)
-    return launch_dkv<__nv_bfloat16, kPruned>(device, q, k, v, seg, q_idx,
-                                              q_count, dout, lse, delta, dk,
-                                              dv, B, S, H, KV, D, bq, bkv,
-                                              causal, scale, stream);
+  if (dtype == 1)  // bf16: the tensor-core kernel
+    return launch_dkv_tc<kPruned>(device, q, k, v, seg, q_idx, q_count, dout,
+                                  lse, delta, dk, dv, B, S, H, KV, D, bq, bkv,
+                                  causal, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

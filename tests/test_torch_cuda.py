@@ -83,16 +83,22 @@ def test_kernels_vs_plain_and_bitexact(dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 64, 16, 8, 128), (2, 256, 16, 8, 128), (3, 96, 4, 2, 64),
-                                   (2, 200, 4, 1, 32)])
-def test_backward_kernels_vs_plain_and_bitexact(dtype, shape):
+@pytest.mark.parametrize("shape,q_scale", [
+    ((1, 64, 16, 8, 128), 1.0), ((2, 256, 16, 8, 128), 1.0), ((3, 96, 4, 2, 64), 1.0),
+    ((2, 200, 4, 1, 32), 1.0),
+    ((2, 256, 16, 8, 128), 4.0),  # peaked softmax: P near one-hot, its bf16 rounding at its worst
+    ((2, 256, 16, 2, 128), 1.0),  # a GQA group of 8
+], ids=["1x64", "2x256", "3x96-d64", "2x200-block40", "2x256-peaked", "2x256-group8"])
+def test_backward_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
     """K2/K3 (dense) and K5/K6 (pruned) against the plain backward on valid
     rows, K5 == K2 and K6 == K3 bit for bit, and exactly zero gradients on
-    all-padding rows."""
+    all-padding rows.  In bf16 the dK/dV pass runs on the tensor cores with
+    P and scale·dS rounded to bf16 (the same tolerance holds)."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     b, s, h, kv, d = shape
     q, k, v, seg = _inputs(2, b, s, h, kv, d, dtype)
+    q = (q.float() * q_scale).to(dtype)
     blk = fa.select_block(s, 128)
     kw = dict(block_q=blk, block_kv=blk)
     out, lse = fa.segment_flash_attention(q, k, v, seg, return_lse=True, **kw)
@@ -115,6 +121,27 @@ def test_backward_kernels_vs_plain_and_bitexact(dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_backward_without_segments(dtype, causal):
+    """K2/K3 with no segment ids (every row valid), causal or not, against
+    the plain backward."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _inputs(4, 2, 256, 16, 8, 128, dtype)
+    kw = dict(causal=causal, block_q=128, block_kv=128)
+    out, lse = fa.segment_flash_attention(q, k, v, None, return_lse=True, **kw)
+    do = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(5), device="cuda",
+                     dtype=torch.float32).to(dtype)
+    ours = fa.segment_flash_attention_bwd(q, k, v, None, out, lse, do, **kw)
+    ref = segment_flash_attention_bwd_ref(q, k, v, None, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_take():
     _need_card()
     q, k, v, seg = _inputs(1, 1, 64, 4, 2, 32, torch.float32)
@@ -123,6 +150,18 @@ def test_kernel_rejects_what_it_cannot_take():
                                    block_q=64, block_kv=64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.segment_flash_attention(q.half(), k.half(), v.half(), seg, block_q=64, block_kv=64)
+    # The bf16 backward copies rows in 16-byte pieces: D % 8 == 0, aligned rows.
+    q, k, v, seg = _inputs(1, 1, 64, 4, 2, 12, torch.bfloat16)
+    out, lse = fa.segment_flash_attention(q, k, v, seg, block_q=64, block_kv=64, return_lse=True)
+    for bwd in (fa.segment_flash_attention_bwd, fa.segment_flash_attention_bwd_pruned):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            bwd(q, k, v, seg, out, lse, out, block_q=64, block_kv=64)
+    q, k, v, seg = _inputs(1, 1, 64, 4, 2, 32, torch.bfloat16)
+    out, lse = fa.segment_flash_attention(q, k, v, seg, block_q=64, block_kv=64, return_lse=True)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.segment_flash_attention_bwd(shifted, k, v, seg, out, lse, out, block_q=64, block_kv=64)
 
 
 def _to(tree, device):
