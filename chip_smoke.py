@@ -4,16 +4,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in the checkout (one ``nvcc`` per
-source, in parallel), then runs:
+source, in parallel; the tensor-core kernels must show 0 spill bytes in
+``ptxas -v``), then runs:
 
 1. device    — the card's name and power limit (``nvidia-smi``), device count;
 2. parity    — the forward kernels, dense (K1) and pruned (K4), at the serving
                shapes, (rows, capacity) in {(1,64), (2,128), (6,128), (8,256)}
-               with 16 q heads over 8 kv heads, d_head 128, held against the
-               plain PyTorch version on valid rows (bf16: atol = rtol = 2e-2;
-               fp32: 2e-5; lse in fp32 at 2e-5), K4 against K1 with
-               ``torch.equal``, and the liveness tables built on the card
-               against the same tables built on the CPU;
+               with 16 q heads over 8 kv heads, d_head 128, and at the
+               backward's extra shapes (the first training step's, block 40
+               at 3 x 200, a peaked softmax at 2 x 1024, a GQA group of 8,
+               d_head 64 at 3 x 96), in fp32 (the CUDA-core route) and bf16
+               (the tensor-core route): held against the plain PyTorch
+               version on valid rows (bf16: atol = rtol = 2e-2; fp32: 2e-5;
+               lse in fp32 at 2e-5 in both), K4 against K1 with
+               ``torch.equal``, exactly zero output on all-padding rows, and
+               the liveness tables built on the card against the same tables
+               built on the CPU;
 3. backward  — the four backward kernels, dQ and dK/dV of the dense (K2, K3)
                and pruned (K5, K6) grids, at the serving shapes, at the first
                training step's packed shape, at S = 200 (block 40), with a
@@ -183,6 +189,12 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
+    # The bf16 forward (K1/K4) and dK/dV (K3/K6) kernels, dense and pruned.
+    spills = {fn: n for log in build.BUILD_LOGS.values()
+              for fn, n in build.ptxas_spills(log).items() if "_tc_kernel" in fn}
+    check(len(spills) == 4 and not any(spills.values()),
+          f"the tensor-core kernels must not spill: {spills}")
+    print(f"[build] {len(spills)} tensor-core kernels, 0 spill bytes")
 
 
 def make_case(rng, seg, dtype, heads=HEADS, kv_heads=KV_HEADS, d_head=D_HEAD):
@@ -198,7 +210,11 @@ def make_case(rng, seg, dtype, heads=HEADS, kv_heads=KV_HEADS, d_head=D_HEAD):
     return (*qkv, torch.from_numpy(seg).cuda())
 
 
-def phase_parity(rng):
+def phase_parity(rng, train_seg):
+    """K1 and K4 against the plain forward in both dtypes (out at the
+    dtype's tolerance, lse at 2e-5), K4 == K1 bit for bit, exactly zero
+    output on all-padding rows, and the liveness tables on the card against
+    the CPU's."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -206,10 +222,18 @@ def phase_parity(rng):
     from repro_torch.kernels.ref import segment_flash_attention_ref
 
     max_err = {"segment_flash_attention": 0.0, "segment_flash_attention_pruned": 0.0}
-    for rows, cap in SHAPES:
+    cases = [("", packed_segments(rng, rows, cap), {}) for rows, cap in SHAPES]
+    cases += [("training step", train_seg, {}), ("block 40", packed_segments(rng, 3, 200), {}),
+              ("peaked q x4", packed_segments(rng, 2, 1024), dict(q_scale=4.0)),
+              ("group 8", packed_segments(rng, 2, 512), dict(kv_heads=2)),  # 16 q heads over 2
+              ("d_head 64", packed_segments(rng, 3, 96), dict(d_head=64))]  # block 96
+    for label, seg_np, extra in cases:
+        rows, cap = seg_np.shape
         blk = fa.select_block(cap, 128)
+        widths = {key: val for key, val in extra.items() if key != "q_scale"}
         for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            q, k, v, seg = make_case(rng, packed_segments(rng, rows, cap), dtype)
+            q, k, v, seg = make_case(rng, seg_np, dtype, **widths)
+            q = (q.float() * extra.get("q_scale", 1.0)).to(dtype)
             kw = dict(block_q=blk, block_kv=blk, return_lse=True)
             o1, l1 = fa.segment_flash_attention(q, k, v, seg, **kw)
             o4, l4 = fa.segment_flash_attention_pruned(q, k, v, seg, **kw)
@@ -223,21 +247,26 @@ def phase_parity(rng):
                 ok_lse = torch.allclose(l[valid], rl[valid], atol=TOL["float32"], rtol=TOL["float32"])
                 err = (o[valid].float() - ro[valid].float()).abs().max().item()
                 lerr = (l[valid] - rl[valid]).abs().max().item()
-                check(ok_out and ok_lse, f"{name} vs plain at {(rows, cap)} {dname}: "
+                check(ok_out and ok_lse, f"{name} vs plain at {(rows, cap)} {label} {dname}: "
                                          f"out err {err}, lse err {lerr}")
+                check(bool(torch.all(o[~valid] == 0)),
+                      f"{name} output not zero on padding rows at {(rows, cap)} {label} {dname}")
                 if dname == "bfloat16":
                     max_err[name] = max(max_err[name], err)
-                print(f"[parity] {name} rows={rows} cap={cap} {dname}: "
-                      f"max_abs_err out {err:.3g} lse {lerr:.3g} (tol {tol})")
+                print(f"[parity] {name} rows={rows} cap={cap} block={blk} heads={q.shape[2]}/{k.shape[2]} "
+                      f"d_head={q.shape[3]}{' (' + label + ')' if label else ''} {dname}: "
+                      f"max_abs_err out {err:.3g} lse {lerr:.3g} (tol {tol}, lse 2e-05), padding rows zero")
             check(torch.equal(o1, o4) and torch.equal(l1, l4),
-                  f"K4 not bit-exact vs K1 at {(rows, cap)} {dname}")
+                  f"K4 not bit-exact vs K1 at {(rows, cap)} {label} {dname}")
             print(f"[parity] K4 == K1 bit-exact rows={rows} cap={cap} {dname}")
+            del q, k, v, o1, l1, o4, l4, ro, rl
         on_card = build_liveness_tables(seg, block_q=blk, block_kv=blk)
         on_cpu = build_liveness_tables(seg.cpu(), block_q=blk, block_kv=blk)
         check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
               f"liveness tables differ between card and CPU at {(rows, cap)}")
         print(f"[parity] liveness tables card == cpu rows={rows} cap={cap} "
               f"live tiles {int(on_card.kv_count.sum())}/{rows * (cap // blk) ** 2}")
+    torch.cuda.empty_cache()
     return max_err
 
 
@@ -559,6 +588,19 @@ def phase_training() -> dict:
     return launches
 
 
+def visible_pairs(seg) -> int:
+    """The (query, key) pairs that the causal segment mask lets through,
+    summed over the batch rows: the work the attention function needs, which
+    a live tile's masked entries (above the diagonal, across segments) add
+    nothing to."""
+    import torch
+
+    pos = torch.arange(seg.shape[1], device=seg.device)
+    causal = pos[None, :] <= pos[:, None]
+    return sum(int((causal & (row[None, :] == row[:, None]) & (row[None, :] > 0)).sum())
+               for row in seg)
+
+
 def sdpa_inputs(q, k, v, seg):
     """The SDPA yardstick's (B, H, S, D) layout, kv heads repeated, and the
     same visibility as a boolean mask (rows with no visible key are padding)."""
@@ -589,7 +631,8 @@ def phase_times(rng, launches: dict):
         q, k, v, seg = make_case(rng, packed_segments(rng, rows, cap), torch.bfloat16)
         tables = build_liveness_tables(seg, block_q=blk, block_kv=blk)
         live = int(tables.kv_count.sum()) * HEADS
-        flops = 4.0 * blk * blk * D_HEAD * live
+        pairs = visible_pairs(seg) * HEADS
+        flops = 4.0 * D_HEAD * pairs
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v read, out written
         bound_s = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if flops / PEAK_FLOPS > nbytes / PEAK_BYTES else "bytes"
@@ -599,14 +642,16 @@ def phase_times(rng, launches: dict):
         t_plain = cuda_ms(lambda: segment_flash_attention_ref(q, k, v, seg))
         qt, kt, vt, mask = sdpa_inputs(q, k, v, seg)
         t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-        row = dict(rows=rows, cap=cap, block=blk, live_tiles=live, flops=flops, bytes=nbytes,
+        row = dict(rows=rows, cap=cap, block=blk, live_tiles=live, visible_pairs=pairs,
+                   flops=flops, bytes=nbytes,
                    bound_ms=1e3 * bound_s, bound_by=bound_by, k1_ms=t_k1, k4_ms=t_k4,
                    plain_ms=t_plain, library_ms=t_lib)
         rows_out.append(row)
         for name, t in (("segment_flash_attention", t_k1), ("segment_flash_attention_pruned", t_k4)):
             print(f"[times] {name} rows={rows} cap={cap} bf16: kernel_ms {t:.4f} plain_ms "
                   f"{t_plain:.4f} library_ms {t_lib:.4f} bound_ms {1e3 * bound_s:.5f} ({bound_by}) "
-                  f"live tiles {live} launches {launches[name]} (serving run, all shapes)")
+                  f"live tiles {live} visible pairs {pairs} launches {launches[name]} "
+                  f"(serving run, all shapes)")
     return rows_out
 
 
@@ -614,8 +659,9 @@ def phase_times_training(rng, train_seg) -> dict:
     """Every kernel at the first training step's shape (bf16): each pass of
     the backward alone through its C entry point, the plain version, the
     SDPA yardstick (its forward for K1/K4, its backward for the backward
-    kernels) and the bound (live tiles' FLOPs at 4, 6 or 8 bq.bkv.D for the
-    forward, dQ and dK/dV; each input read once, each output written once)."""
+    kernels) and the bound (4, 6 or 8 D FLOPs per visible (query, key) pair
+    and head for the forward, dQ and dK/dV; each input read once, each output
+    written once)."""
     import ctypes
 
     import torch
@@ -630,6 +676,7 @@ def phase_times_training(rng, train_seg) -> dict:
     rows, cap = train_seg.shape
     tables = build_liveness_tables(seg, block_q=blk, block_kv=blk)
     live = int(tables.kv_count.sum()) * HEADS  # live (row, q-head, tile) triples
+    pairs = visible_pairs(seg) * HEADS  # visible (row, q-head, query, key)
     delta = (do.float() * out.float()).sum(dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = build.load_library("flash_bwd")
@@ -656,9 +703,9 @@ def phase_times_training(rng, train_seg) -> dict:
     stat_bytes = 4 * rows * cap * HEADS  # one fp32 (rows, cap, H) statistic
     seg_bytes = 4 * rows * cap
     work = {  # name -> (FLOPs, bytes read once + written once)
-        "fwd": (4.0 * blk * blk * D_HEAD * live, 2 * qo_bytes + 2 * kv_bytes + stat_bytes + seg_bytes),
-        "dq": (6.0 * blk * blk * D_HEAD * live, 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
-        "dkv": (8.0 * blk * blk * D_HEAD * live, 2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "fwd": (4.0 * D_HEAD * pairs, 2 * qo_bytes + 2 * kv_bytes + stat_bytes + seg_bytes),
+        "dq": (6.0 * D_HEAD * pairs, 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "dkv": (8.0 * D_HEAD * pairs, 2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
     }
     qt, kt, vt, mask = sdpa_inputs(q, k, v, seg)
     t_lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=10)
@@ -694,10 +741,11 @@ def phase_times_training(rng, train_seg) -> dict:
         r = result[name]
         print(f"[times] {name} rows={rows} cap={cap} block={blk} bf16 (training step 1): kernel_ms "
               f"{ms:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.5f} ({bound_by}) live tiles {live} "
+              f"{r['bound_ms']:.5f} ({bound_by}) live tiles {live} visible pairs {pairs} "
               f"achieved {flops / ms / 1e9:.2f} TFLOP/s, bound share {r['bound_ms'] / ms:.4f}, "
               f"kernel/library {ms / r['library_ms']:.3f}")
-    return dict(result, shape=[rows, cap, HEADS, KV_HEADS, D_HEAD], block=blk, live_tiles=live)
+    return dict(result, shape=[rows, cap, HEADS, KV_HEADS, D_HEAD], block=blk, live_tiles=live,
+                visible_pairs=pairs)
 
 
 def to_cpu(tree):
@@ -962,8 +1010,8 @@ def main() -> None:
     t_start = time.perf_counter()
     name, count = phase_device()
     phase_build()
-    max_err = phase_parity(np.random.default_rng(0))
     train_seg = training_segments()
+    max_err = phase_parity(np.random.default_rng(0), train_seg)
     max_err.update(phase_backward(np.random.default_rng(2), train_seg))
     ssd_err = phase_ssd(np.random.default_rng(4))
     serve_launches = phase_serving()
@@ -986,6 +1034,8 @@ def main() -> None:
             entry.update(
                 launches_serving=serve_launches[kname],
                 serving_ms=serve_times["k1_ms" if grid == "dense" else "k4_ms"],
+                serving_plain_ms=serve_times["plain_ms"], serving_library_ms=serve_times["library_ms"],
+                serving_bound_ms=serve_times["bound_ms"],
                 serving_shape=[serve_times["rows"], serve_times["cap"], HEADS, KV_HEADS, D_HEAD],
             )
         kernels.append(entry)

@@ -3,9 +3,11 @@
 Each source is compiled into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), for ``sm_90a``, into
 ``build/repro_torch/`` at the root of the checkout.  The library name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded from the earlier build.  Nothing is built at import:
-the first kernel launch (or :func:`build_all`) does it.
+a hash of the source, of every shared header (``csrc/*.cuh``, which a source
+includes) and of the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded from the earlier build, with the ``nvcc``/``ptxas``
+log kept beside it.  Nothing is built at import: the first kernel launch (or
+:func:`build_all`) does it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -59,7 +62,7 @@ SIGNATURES = {
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-BUILD_LOGS: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's build
+BUILD_LOGS: dict[str, str] = {}  # name -> nvcc/ptxas output of the library's build
 
 
 def nvcc_path() -> str:
@@ -75,6 +78,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -86,6 +92,9 @@ def build_all(names=SOURCES) -> dict[str, pathlib.Path]:
     running = {}
     for name, path in paths.items():
         if path.exists():
+            log = path.with_suffix(".log")
+            if name not in BUILD_LOGS and log.exists():
+                BUILD_LOGS[name] = log.read_text()
             continue
         tmp = path.with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -99,10 +108,24 @@ def build_all(names=SOURCES) -> dict[str, pathlib.Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        paths[name].with_suffix(".log").write_text(log)
         os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def ptxas_spills(log: str) -> dict[str, int]:
+    """Spill bytes (stores plus loads) of every function in a ``ptxas -v``
+    log, by mangled name."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1].strip()
+        elif name is not None and "spill stores" in line:
+            spills[name] = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+            name = None
+    return spills
 
 
 def load_library(name: str) -> ctypes.CDLL:

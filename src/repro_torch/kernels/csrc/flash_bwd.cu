@@ -105,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -119,7 +121,7 @@ constexpr int kDimTile = kMaxHeadDim / kLanes;  // head-dim columns per thread
 // The reference's sentinel, -0.7 * f32max computed in double and rounded
 // once to float, exactly as the Python side builds it.
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
-constexpr int kSegBig = 1 << 30;
+using tc::kSegBig;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -526,9 +528,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_rows(dv + x_off, kv_stride, R, D, acc_v);
 }
 
+}  // namespace
+
 // ---------------------------------------------------------------------------
 // The bf16 dK/dV pass on the tensor cores (K3 and K6 when the inputs are
-// bf16; see the note at the head of the file).
+// bf16; see the note at the head of the file).  The helpers are in
+// tc_common.cuh.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -537,13 +542,6 @@ constexpr int kTileRows = 128;            // kv rows of a block: a whole pinned 
 constexpr int kChunk = 32;                // q columns of one register chunk
 constexpr int kChunkTiles = kChunk / 8;   // n8 accumulator tiles of a chunk
 constexpr int kDimTiles = kMaxHeadDim / 8;  // n8 accumulator tiles of dK (and dV)
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Rows of every shared tile hold D rounded up to the MMA depth (16), plus 8
-// bf16 of padding: the row pitch is then 4 banks modulo 32, so the eight
-// 16-byte rows of one ldmatrix matrix hit eight distinct bank quads.
-__host__ __device__ __forceinline__ int padded_dim(int D) { return (D + 15) & ~15; }
-__host__ __device__ __forceinline__ int pitch(int D) { return padded_dim(D) + 8; }
 
 // Byte offsets into the block's dynamic shared memory: the K and V tiles,
 // then two ring stages of stage_bytes each (q rows, dO rows, lse, delta and
@@ -566,86 +564,6 @@ __host__ __device__ __forceinline__ Layout layout(int D) {
   L.stage_bytes = L.seg + stat;
   L.total = L.ring + 2 * L.stage_bytes;
   return L;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one committed group (the one just issued) is in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16 x 16, row-major) . b (16 x 8, column-major): bf16 in, fp32 sum.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two fp32 values rounded to nearest bf16, x in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (x, y) as two bf16 pairs whose sum carries 16 mantissa bits: hi rounds
-// (x, y) to nearest, lo rounds what hi left over.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y));
-}
-
-// (lo, hi) of the positive segment ids of `n` positions, reduced over the
-// warp (lo = kSegBig when there is none): every lane gets seg_range's result.
-__device__ __forceinline__ void warp_seg_range(const int* __restrict__ ids, int n, int& lo,
-                                               int& hi) {
-  int l = kSegBig, h = 0;
-  for (int i = threadIdx.x % 32; i < n; i += 32) {
-    const int id = ids[i];
-    h = max(h, id);
-    if (id > 0) l = min(l, id);
-  }
-  lo = __reduce_min_sync(0xffffffffu, l);
-  hi = __reduce_max_sync(0xffffffffu, h);
 }
 
 // One ring stage: what one step of the walk copies in and reads.
@@ -946,6 +864,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace tc
 
+namespace {
+
 bool bad_shape(int S, int H, int KV, int D, int bq, int bkv) {
   return bq < 1 || bkv < 1 || bq > kMaxBlock || bkv > kMaxBlock || D < 1 ||
          D > kMaxHeadDim || S % bq != 0 || S % bkv != 0 || KV < 1 ||
@@ -998,17 +918,14 @@ int launch_dkv(int device, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 dK/dV pass: 16-byte copies need D % 8 == 0 and 16-byte aligned
-// q, k, v and dO (the wrapper checks both and raises first).
+// The bf16 dK/dV pass.
 template <bool kPruned>
 int launch_dkv_tc(int device, const void* q, const void* k, const void* v, const int* seg,
                   const int* q_idx, const int* q_count, const void* dout, const float* lse,
                   const float* delta, void* dk, void* dv, int B, int S, int H, int KV, int D,
                   int bq, int bkv, int causal, float scale, void* stream) {
   const void* ptrs[] = {q, k, v, dout, dk, dv};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tc::rows_copyable(ptrs, D)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = tc::layout(D).total;
   auto kernel = tc::flash_bwd_dkv_tc_kernel<kPruned>;
   cudaError_t err = prepare(device, kernel, smem);

@@ -1,7 +1,8 @@
 // Segment-aware causal flash attention, forward only, for Hopper (sm_90a).
 //
-// Two kernels share one tile routine, so they apply the same fp32 arithmetic
-// in the same ascending kv-block order and their outputs are bit-identical:
+// Two kernels share one tile routine per route, so they apply the same
+// arithmetic in the same ascending kv-block order and their outputs are
+// bit-identical:
 //
 //   flash_fwd_dense   replaces repro/kernels/flash_attention.py ::
 //                     segment_flash_attention (_flash_body, _block_live,
@@ -15,29 +16,71 @@
 //
 // Masking contract: key j is visible to query i iff (causal => j <= i, by
 // absolute row position) and segment_ids match with the key's id > 0.  Rows
-// with no visible key give out = 0 and lse = NEG_INF.
+// with no visible key give out = 0 and lse = NEG_INF; P is built from the
+// mask, never from exp(S - NEG_INF).
 //
-// What bounds it on the H100 at the serving shapes (B <= 8 packed rows,
-// S in {64, 128, 256}, 16 q heads over 8 kv heads, d_head 128, bf16): one
-// prefill call moves at most ~25 MB and does a few GFLOP, so by the card's
-// peak rates it is memory-bound at under 8 us.  This kernel is bound by
-// neither: it runs the two products on the CUDA cores in fp32 (no tensor
-// cores, no TF32), one 256-thread block per (b, h, q-block) holds ~195 KB of
-// shared memory, so one block (8 warps) runs per SM with little latency
-// hidden, and a prefill of 1-8 rows launches only 16-256 blocks for 132 SMs
-// (chip_smoke.py on an H100 SXM at 700 W: 0.27 ms at 8 x 256).  What the
-// design does about it: every tile is staged once in shared memory as fp32
-// (padded rows, so the per-thread strided reads hit distinct banks), each
+// What bounds it on the H100: at the training shape (two packed rows of 6144,
+// 16 q heads over 8 kv heads, d_head 128, bf16) the live tiles' work is
+// 4 bq.bkv.D FLOPs per (row, q-head, tile), ~135 GFLOP a call, so by the
+// card's peak rates it is bound by operations (~0.14 ms); at the serving
+// shapes (B <= 8 packed rows, S <= 256) one call moves a few MB and is bound
+// by bytes at under 8 us.
+//
+// Two routes, chosen by the dtype (no switch):
+//
+// fp32 (flash_fwd_kernel) is the exact rail (2e-5): the products are
+// fp32 fma chains on the CUDA cores (no TF32).  One 256-thread block per
+// (b, h, q-block) stages each tile once in shared memory as fp32 (~195 KB at
+// d_head 128, padded rows so the strided reads hit distinct banks), each
 // thread keeps an 8x8 register micro-tile of scores and of the output
-// accumulator (16 reuses per shared-memory load), the row statistics are
-// reduced with warp shuffles, and the pruned kernel never touches a dead
-// tile.  Tensor-core products (wgmma), TMA loads and a pipelined k/v ring
-// are the next steps; they change the summation order, so they must land in
-// both kernels at once to keep the bit-exact pair.
+// accumulator, and the row statistics are reduced with warp shuffles.  It
+// reaches ~1 % of the tensor-core rate.
+//
+// bf16 (namespace tc, flash_fwd_tc_kernel) runs on the tensor cores:
+//
+// * Ownership.  One 256-thread block per (whole pinned q block of up to 128
+//   rows, q head, batch row); warp w owns q rows 16w .. 16w+15 (warps past a
+//   ragged block idle).  The grid is one-dimensional with the last q blocks
+//   first: under the causal mask they hold the most live tiles, so the
+//   longest blocks start in the first wave.
+// * Loads.  The q tile is copied once by cp.async and kept in registers as
+//   ldmatrix A fragments.  The k and v rows of each live kv tile, with the
+//   tile's segment ids, go through a two-stage cp.async ring (16-byte copies;
+//   so D % 8 == 0 and 16-byte aligned q, k, v and out, which the wrapper
+//   checks): the next live tile's copies are issued before this tile's math.
+//   Rows hold D rounded up to 16 plus 8 bf16 (conflict-free ldmatrix), and
+//   shared memory is zeroed once, so ragged tails are 0 x 0.  175,104 bytes
+//   at d_head 128: one block per SM.
+// * Products.  mma.sync.m16n8k16 bf16 -> fp32.  S = Q.K^T with the k rows as
+//   the column-major B operand (ldmatrix); the mask, the scale and the online
+//   softmax run in the accumulator registers (the four lanes of a row reduce
+//   with two shuffles); then P, rounded to bf16, is the A operand of
+//   O += P.V (two adjacent n8 accumulator tiles are one k16 A fragment,
+//   FlashAttention-2's reuse) with V by ldmatrix.trans.  P never touches
+//   shared memory; O stays in fp32 registers and is written once.
+// * Registers.  O (64 fp32 a thread at d_head 128), the q fragments (32) and
+//   a 128-column score tile (64) would pass the 255 a thread may have, so
+//   each pinned kv tile is walked as two 64-column halves, one online-softmax
+//   update per half.
+// * Numerics.  The scale multiplies the fp32 product in fp32, and l is summed
+//   from the fp32 P before P is rounded, so lse keeps the fp32 rail (2e-5);
+//   only the output carries P's bf16 rounding (2e-2).
+// * Masks.  A warp's 16 x 64 piece that lies inside the blocks, wholly at or
+//   below the diagonal and inside one positive segment skips the per-element
+//   test; a piece wholly above the diagonal is skipped.
+// * Liveness.  K4 walks kv_idx[b, qb, :kv_count]; K1 tests each kv block with
+//   the _block_live rule, the segment ranges reduced by each warp with
+//   __reduce_min/max_sync, so no thread waits on one.
+//
+// K4 == K1 holds bit for bit on both routes: the same live tiles in the same
+// order through one step routine, and mma.sync's sums are deterministic for
+// the same operands.  wgmma with TMA is the next step for the bf16 route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -51,23 +94,7 @@ constexpr int kDims = kMaxHeadDim / kLanes;  // head-dim columns per thread
 // The reference's sentinel, -0.7 * f32max computed in double and rounded
 // once to float, exactly as the Python side builds it.
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
-constexpr int kSegBig = 1 << 30;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using tc::kSegBig;
 
 // Max / sum across the 16 lanes that own the same rows.  The xor butterfly
 // gives every lane the bit-identical result (IEEE + and max commute).
@@ -85,15 +112,14 @@ __device__ __forceinline__ float lanes_sum(float x) {
 }
 
 // Copy `rows` rows of `d` elements (row r at src + r * row_stride) into a
-// shared fp32 tile with leading dimension ld.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// shared tile with leading dimension ld.
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int rows, int d, size_t row_stride,
                                           int ld) {
   for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
     const int r = idx / d;
     const int c = idx - r * d;
-    dst[r * ld + c] = to_float(src[r * row_stride + c]);
+    dst[r * ld + c] = src[r * row_stride + c];
   }
 }
 
@@ -109,9 +135,8 @@ struct Smem {
 // sm.kv on entry.  Every thread owns rows ti + 16*ii of the q block, kv
 // columns tj + 16*jj of the scores and head-dim columns tj + 16*dd of the
 // accumulator.
-template <typename T>
 __device__ __forceinline__ void tile_update(
-    const Smem& sm, const T* __restrict__ v_rows, size_t row_stride, int q0,
+    const Smem& sm, const float* __restrict__ v_rows, size_t row_stride, int q0,
     int k0, int bq, int bkv, int D, bool causal, bool has_seg, float scale,
     float (&m)[kRows], float (&l)[kRows], float (&acc)[kRows][kDims]) {
   const int ti = threadIdx.x / kLanes;
@@ -208,12 +233,12 @@ __device__ __forceinline__ void tile_update(
 
 // One block per (q-block, head, batch row).  kPruned selects the loop: every
 // kv block with the in-kernel liveness test, or the table's live blocks.
-template <typename T, bool kPruned>
+template <bool kPruned>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ seg,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ seg,
                      const int* __restrict__ kv_idx,
-                     const int* __restrict__ kv_count, T* __restrict__ out,
+                     const int* __restrict__ kv_count, float* __restrict__ out,
                      float* __restrict__ lse, int S, int H, int KV, int D,
                      int bq, int bkv, int causal, float scale) {
   extern __shared__ float smem[];
@@ -301,11 +326,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row >= bq) continue;
     const float denom = l[ii] == 0.f ? 1.f : l[ii];
     const size_t pos = static_cast<size_t>(b) * S + q0 + row;
-    T* out_row = out + pos * q_stride + h * D;
+    float* out_row = out + pos * q_stride + h * D;
 #pragma unroll
     for (int dd = 0; dd < kDims; ++dd) {
       const int col = tj + kLanes * dd;
-      if (col < D) out_row[col] = from_float<T>(__fdiv_rn(acc[ii][dd], denom));
+      if (col < D) out_row[col] = __fdiv_rn(acc[ii][dd], denom);
     }
     if (lse != nullptr && tj == 0)
       lse[pos * H + h] = l[ii] > 0.f ? __fadd_rn(m[ii], logf(denom)) : kNegInf;
@@ -319,7 +344,8 @@ size_t smem_bytes(int D, int bq, int bkv) {
          sizeof(int) * static_cast<size_t>(bq + bkv);
 }
 
-template <typename T, bool kPruned>
+// The fp32 route.
+template <bool kPruned>
 int launch(int device, const void* q, const void* k, const void* v,
            const int* seg, const int* kv_idx, const int* kv_count, void* out,
            float* lse, int B, int S, int H, int KV, int D, int bq, int bkv,
@@ -327,15 +353,374 @@ int launch(int device, const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(D, bq, bkv);
-  auto kernel = flash_fwd_kernel<T, kPruned>;
+  auto kernel = flash_fwd_kernel<kPruned>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(S / bq, H, B);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, kv_idx, kv_count, static_cast<T*>(out),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg, kv_idx, kv_count, static_cast<float*>(out),
       lse, S, H, KV, D, bq, bkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (K1 and K4 when the inputs are bf16;
+// see the note at the head of the file).  The helpers are in tc_common.cuh.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kTileRows = 128;              // rows of a q or kv tile: a whole pinned block
+constexpr int kHalf = 64;                   // kv columns of one online-softmax update
+constexpr int kHalfTiles = kHalf / 8;       // n8 score tiles of a half
+constexpr int kOutTiles = kMaxHeadDim / 8;  // n8 tiles of the output rows
+constexpr int kQFrags = kMaxHeadDim / 16;   // k16 A fragments of the q rows
+
+// Byte offsets into the block's dynamic shared memory: the q tile, then two
+// ring stages of stage_bytes each (the kv tile's k rows, v rows and segment
+// ids).
+struct FwdLayout {
+  unsigned tile, ring, v, seg, stage_bytes, total;
+};
+
+__host__ __device__ __forceinline__ FwdLayout fwd_layout(int D) {
+  FwdLayout L;
+  L.tile = kTileRows * pitch(D) * 2;
+  L.ring = L.tile;
+  L.v = L.tile;  // within a stage; the k rows start at 0
+  L.seg = 2 * L.tile;
+  L.stage_bytes = L.seg + kTileRows * 4;
+  L.total = L.ring + 2 * L.stage_bytes;
+  return L;
+}
+
+// One live kv tile for this warp's q rows r0 .. r0+15: the online-softmax
+// update of (m, l, o), 64 kv columns at a time.  Element e of n8 accumulator
+// tile j is q row r0 + g (+8 for e >= 2) and column 8j + 2 tig (+1 for odd
+// e); m is in the units of scale.q.k.
+__device__ __forceinline__ void fwd_step(const uint32_t (&qf)[kQFrags][4],
+                                         const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                         const int* kseg, int pitch_, int dpad, int bq, int bkv,
+                                         int q_pos0, int k_pos0, bool causal, bool has_seg,
+                                         const int (&qseg)[2], float scale, float (&m)[2],
+                                         float (&l)[2], float (&o)[kOutTiles][4]) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const int g = lane / 4, tig = lane % 4;
+  // ldmatrix.x4 row addresses.  K as the plain B operand: the matrices are
+  // (rows 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15), i.e. the k
+  // halves of two n8 tiles.  V as the trans B operand: (0-7, 0-7),
+  // (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = (lane >> 4) * 8;
+  const uint32_t k_addr = smem_addr(ks + b_row * pitch_ + b_col);
+  const uint32_t v_addr = smem_addr(vs + t_row * pitch_ + t_col);
+  const uint32_t row_bytes = 2u * pitch_;
+
+  for (int c0 = 0; c0 < bkv; c0 += kHalf) {
+    // Every key from here on lies after every query of the warp.
+    if (causal && k_pos0 + c0 > q_pos0 + r0 + 15) break;
+
+    float s[kHalfTiles][4];
+#pragma unroll
+    for (int j = 0; j < kHalfTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kQFrags; ++kk) {
+      if (16 * kk < dpad) {
+#pragma unroll
+        for (int jp = 0; jp < kHalfTiles / 2; ++jp) {
+          if (c0 + 16 * jp < bkv) {
+            uint32_t b[4];
+            ldsm_x4(b, k_addr + (c0 + 16 * jp) * row_bytes + 32 * kk);
+            mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+            mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+          }
+        }
+      }
+    }
+
+    // A piece the mask cannot touch (all its rows and columns inside the
+    // blocks, every key at or before every query, one positive segment
+    // throughout) skips the per-element test; the arithmetic is the same.
+    bool open = r0 + 16 <= bq && c0 + kHalf <= bkv &&
+                (!causal || k_pos0 + c0 + kHalf - 1 <= q_pos0 + r0);
+    if (open && has_seg) {
+      const int id = __shfl_sync(0xffffffffu, qseg[0], 0);
+      bool same = qseg[0] == id && qseg[1] == id && id > 0;
+#pragma unroll
+      for (int j = 0; j < kHalfTiles; ++j) {
+        const int2 ids = *reinterpret_cast<const int2*>(kseg + c0 + 8 * j + 2 * tig);
+        same = same && ids.x == id && ids.y == id;
+      }
+      open = __all_sync(0xffffffffu, same);
+    }
+    uint32_t visible = ~0u;  // bit 4j + e: entry (j, e) is visible
+    if (!open) {
+      visible = 0u;
+#pragma unroll
+      for (int j = 0; j < kHalfTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + (e >> 1) * 8;
+          const int c = c0 + 8 * j + 2 * tig + (e & 1);
+          bool ok = r < bq && c < bkv;
+          if (causal) ok = ok && k_pos0 + c <= q_pos0 + r;
+          if (has_seg) ok = ok && kseg[c] > 0 && kseg[c] == qseg[e >> 1];
+          visible |= static_cast<uint32_t>(ok) << (4 * j + e);
+        }
+    }
+
+    // The online softmax of the half: P from the mask, l from the fp32 P.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kHalfTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (visible >> (4 * j + e)) & 1u;
+        s[j][e] = ok ? __fmul_rn(s[j][e], scale) : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      const float safe_m = m_new <= kNegInf ? 0.f : m_new;
+      alpha[i] = m[i] <= kNegInf ? 0.f : exp2f(__fmul_rn(__fsub_rn(m[i], safe_m), kLog2e));
+      shift[i] = -__fmul_rn(safe_m, kLog2e);
+      m[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kHalfTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (visible >> (4 * j + e)) & 1u;
+        const float p = ok ? exp2f(__fmaf_rn(s[j][e], kLog2e, shift[e >> 1])) : 0.f;
+        s[j][e] = p;
+        rs[e >> 1] = __fadd_rn(rs[e >> 1], p);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] = __fadd_rn(rs[i], __shfl_xor_sync(0xffffffffu, rs[i], 1));
+      rs[i] = __fadd_rn(rs[i], __shfl_xor_sync(0xffffffffu, rs[i], 2));
+      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), rs[i]);
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+      for (int n = 0; n < kOutTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = __fmul_rn(o[n][e], alpha[e >> 1]);
+    }
+
+    // O += P.V, P rounded to bf16.
+#pragma unroll
+    for (int kk = 0; kk < kHalfTiles / 2; ++kk) {
+      if (c0 + 16 * kk < bkv) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t off = (c0 + 16 * kk) * row_bytes;
+#pragma unroll
+        for (int n = 0; n < kOutTiles / 2; ++n) {
+          if (16 * n < dpad) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, v_addr + off + 32 * n);
+            mma_bf16(o[2 * n], a, b[0], b[1]);
+            mma_bf16(o[2 * n + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The bf16 forward: one block per (whole pinned q block, q head, batch row),
+// the last q blocks first; warp w owns q rows 16w .. 16w+15 of the block.
+template <bool kPruned>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                        const int* __restrict__ kv_idx, const int* __restrict__ kv_count,
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
+                        int KV, int D, int bq, int bkv, int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const FwdLayout L = fwd_layout(D);
+  const int nq = S / bq, nk = S / bkv;
+  const int heads_rows = gridDim.x / nq;  // H * B
+  const int block = blockIdx.x;
+  const int qb = nq - 1 - block / heads_rows;
+  const int h = block % H, b = (block % heads_rows) / H;
+  const int kvh = h / (H / KV);
+  const int q0 = qb * bq;
+  const bool has_seg = seg != nullptr;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = (tid / 32) * 16, g = lane / 4, tig = lane % 4;
+  const int pitch_ = pitch(D), dpad = padded_dim(D), d8 = D / 8;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+
+  // Zero everything once: the copies below fill only rows < bq (bkv) and
+  // columns < D, so the tails up to the MMA granularity stay zero (masked
+  // entries are then 0 x 0, never 0 x garbage).
+  for (unsigned i = tid; i < L.total / 16; i += kThreads)
+    reinterpret_cast<uint4*>(tc_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const size_t q_off = (row0 + q0) * q_stride + static_cast<size_t>(h) * D;
+  for (int idx = tid; idx < bq * d8; idx += kThreads) {
+    const int r = idx / d8, c = (idx - r * d8) * 8;
+    cp_async16(qs + r * pitch_ + c, q + q_off + r * q_stride + c);
+  }
+  cp_async_commit();
+
+  // This thread's two q rows' segment ids, and (dense liveness) the whole
+  // pinned q block's segment range, reduced by each warp.
+  int qseg[2] = {0, 0};
+  if (has_seg)
+    for (int i = 0; i < 2; ++i)
+      if (r0 + g + 8 * i < bq) qseg[i] = seg[row0 + q0 + r0 + g + 8 * i];
+  int q_lo = kSegBig, q_hi = 0;
+  if (!kPruned && has_seg) warp_seg_range(seg + row0 + q0, bq, q_lo, q_hi);
+
+  // The walk: kv blocks ascending; the dense kernel skips the dead ones by
+  // the _block_live rule.
+  const int row_tables = b * nq + qb;
+  const int n_steps = kPruned ? kv_count[row_tables] : nk;
+  auto kv_block = [&](int t) {
+    return kPruned ? kv_idx[static_cast<size_t>(row_tables) * nk + t] : t;
+  };
+  auto next_live = [&](int t) {
+    if constexpr (!kPruned) {
+      for (; t < n_steps; ++t) {
+        const int k0 = t * bkv;
+        bool ok = !causal || q0 + bq - 1 >= k0;
+        if (ok && has_seg) {
+          int k_lo, k_hi;
+          warp_seg_range(seg + row0 + k0, bkv, k_lo, k_hi);
+          ok = q_hi > 0 && k_hi > 0 && q_hi >= k_lo && k_hi >= q_lo;
+        }
+        if (ok) break;
+      }
+    }
+    return t;
+  };
+  auto stage = [&](int s) { return tc_smem + L.ring + s * L.stage_bytes; };
+  auto issue = [&](int t, int s) {  // cp.async the tile's k, v rows and segment ids into stage s
+    const int k0 = kv_block(t) * bkv;
+    unsigned char* base = stage(s);
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(base);
+    __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(base + L.v);
+    const size_t off = (row0 + k0) * kv_stride + static_cast<size_t>(kvh) * D;
+    for (int idx = tid; idx < bkv * d8; idx += kThreads) {
+      const int r = idx / d8, c = (idx - r * d8) * 8;
+      cp_async16(ks + r * pitch_ + c, k + off + r * kv_stride + c);
+      cp_async16(vs + r * pitch_ + c, v + off + r * kv_stride + c);
+    }
+    if (has_seg)
+      for (int i = tid; i < bkv; i += kThreads)
+        cp_async4(reinterpret_cast<int*>(base + L.seg) + i, seg + row0 + k0 + i);
+  };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kOutTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOutTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  int t = next_live(0);
+  if (t < n_steps) issue(t, 0);
+  cp_async_commit();
+  cp_async_wait_prev();  // the q tile has landed
+  __syncthreads();
+  uint32_t qf[kQFrags][4];
+  {
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+    const uint32_t q_addr = smem_addr(qs + (r0 + a_row) * pitch_ + a_col);
+#pragma unroll
+    for (int kk = 0; kk < kQFrags; ++kk) {
+      if (16 * kk < dpad) {
+        ldsm_x4(qf[kk], q_addr + 32 * kk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[kk][e] = 0u;
+      }
+    }
+  }
+
+  // A two-stage ring: tile t+1's copies are in flight while tile t computes.
+  for (int s = 0; t < n_steps; s ^= 1) {
+    const int t_next = next_live(t + 1);
+    if (t_next < n_steps) issue(t_next, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    if (r0 < bq) {
+      const unsigned char* base = stage(s);
+      fwd_step(qf, reinterpret_cast<const __nv_bfloat16*>(base),
+               reinterpret_cast<const __nv_bfloat16*>(base + L.v),
+               reinterpret_cast<const int*>(base + L.seg), pitch_, dpad, bq, bkv, q0,
+               kv_block(t) * bkv, causal != 0, has_seg, qseg, scale, m, l, o);
+    }
+    __syncthreads();  // stage s is refilled by the next iteration's copies
+    t = t_next;
+  }
+  cp_async_wait_all();
+
+  // out and lse leave once, for the block's rows only.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= bq) continue;
+    const float denom = l[half] == 0.f ? 1.f : l[half];
+    const size_t pos = row0 + q0 + r;
+    __nv_bfloat16* out_row = out + pos * q_stride + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int n = 0; n < kOutTiles; ++n) {
+      const int c = 8 * n + 2 * tig;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(out_row + c) = __floats2bfloat162_rn(
+            __fdiv_rn(o[n][2 * half], denom), __fdiv_rn(o[n][2 * half + 1], denom));
+    }
+    if (lse != nullptr && tig == 0)
+      lse[pos * H + h] = l[half] > 0.f ? __fadd_rn(m[half], logf(denom)) : kNegInf;
+  }
+}
+
+}  // namespace tc
+
+namespace {
+
+// The bf16 route.
+template <bool kPruned>
+int launch_tc(int device, const void* q, const void* k, const void* v, const int* seg,
+              const int* kv_idx, const int* kv_count, void* out, float* lse, int B, int S, int H,
+              int KV, int D, int bq, int bkv, int causal, float scale, void* stream) {
+  const void* ptrs[] = {q, k, v, out};
+  if (!tc::rows_copyable(ptrs, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = tc::fwd_layout(D).total;
+  auto kernel = tc::flash_fwd_tc_kernel<kPruned>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(S / bq) * H * B;
+  using bf16 = __nv_bfloat16;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
+      kv_idx, kv_count, static_cast<bf16*>(out), lse, S, H, KV, D, bq, bkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,13 +734,11 @@ int dispatch(int dtype, int device, const void* q, const void* k,
       D > kMaxHeadDim || S % bq != 0 || S % bkv != 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float, kPruned>(device, q, k, v, seg, kv_idx, kv_count, out,
-                                  lse, B, S, H, KV, D, bq, bkv, causal, scale,
-                                  stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kPruned>(device, q, k, v, seg, kv_idx,
-                                          kv_count, out, lse, B, S, H, KV, D,
-                                          bq, bkv, causal, scale, stream);
+    return launch<kPruned>(device, q, k, v, seg, kv_idx, kv_count, out, lse,
+                           B, S, H, KV, D, bq, bkv, causal, scale, stream);
+  if (dtype == 1)  // bf16: the tensor-core kernel
+    return launch_tc<kPruned>(device, q, k, v, seg, kv_idx, kv_count, out, lse,
+                              B, S, H, KV, D, bq, bkv, causal, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

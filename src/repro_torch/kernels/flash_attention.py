@@ -19,15 +19,18 @@ Backward, four kernels in ``csrc/flash_bwd.cu``, two passes per grid:
   row tables (dQ) and the column tables (dK/dV), bit-exact against the dense
   pair.
 
-The dtype picks the dK/dV route: in bf16 it runs on the tensor cores
-(``mma.sync`` from a cp.async ring, one block per whole kv tile, P rounded
-to bf16 and scale·dS carried as two bf16 terms), which needs head dims that
-are multiples of 8 and 16-byte aligned q, k, v and do (the wrappers raise a
-``ValueError`` otherwise); in fp32, and for every dQ pass, the products are
-fp32 fma chains on the CUDA cores.  Both backward wrappers take the
-forward's ``(out, lse)`` and compute ``delta = rowsum(dO ⊙ O)`` in fp32 as
-one PyTorch reduction before the kernels.  All six are built for
-``sm_90a`` at first use (``kernels/build.py``).
+The dtype picks the route of the forward and of the dK/dV pass.  In bf16
+they run on the tensor cores (``mma.sync`` fed by a cp.async ring, one block
+per whole pinned tile): the forward rounds P to bf16 before P·V (the
+softmax statistics and ``lse`` stay fp32), the dK/dV pass rounds P to bf16
+and carries scale·dS as two bf16 terms.  Both copy rows in 16-byte pieces,
+so they take head dims that are multiples of 8 and 16-byte aligned inputs;
+the wrappers raise a ``ValueError`` otherwise, with no fallback.  In fp32,
+and for every dQ pass, the products are fp32 fma chains on the CUDA cores
+(the exact rail).  Both backward wrappers take the forward's ``(out, lse)``
+and compute ``delta = rowsum(dO ⊙ O)`` in fp32 as one PyTorch reduction
+before the kernels.  All six are built for ``sm_90a`` at first use
+(``kernels/build.py``).
 
 A wrapper given CUDA tensors launches its kernels or raises; given CPU
 tensors it computes the plain version (``kernels/ref.py``).  Each launch adds
@@ -148,15 +151,20 @@ def _check_cuda(*tensors):
         raise ValueError(f"head dim {d} > 128 is not supported by the CUDA kernels")
 
 
-def _check_bwd_cuda(q, k, v, do) -> None:
-    """The bf16 dK/dV kernel copies rows in 16-byte pieces: it takes head
-    dims that are multiples of 8 and 16-byte aligned q, k, v and do."""
-    if q.dtype != torch.bfloat16:
+def _check_tc_cuda(direction: str, **tensors: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels (the forward and the dK/dV pass) copy rows
+    in 16-byte pieces: they take head dims that are multiples of 8 and
+    16-byte aligned inputs."""
+    first = next(iter(tensors.values()))
+    if first.dtype != torch.bfloat16:
         return
-    if q.shape[-1] % 8:
-        raise ValueError(f"the bf16 backward kernels take head dims that are multiples of 8, got {q.shape[-1]}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("the bf16 backward kernels take 16-byte aligned q, k, v and do")
+    if first.shape[-1] % 8:
+        raise ValueError(
+            f"the bf16 {direction} kernels take head dims that are multiples of 8, got {first.shape[-1]}"
+        )
+    if any(t.data_ptr() % 16 for t in tensors.values()):
+        *rest, last = tensors
+        raise ValueError(f"the bf16 {direction} kernels take 16-byte aligned {', '.join(rest)} and {last}")
 
 
 def _ptr(t: torch.Tensor | None):
@@ -223,6 +231,7 @@ def segment_flash_attention(
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     _check_cuda(q, k, v, *([segment_ids] if segment_ids is not None else []))
+    _check_tc_cuda("forward", q=q, k=k, v=v)
     from repro_torch.kernels.build import load_library
 
     lib = load_library("flash_fwd")
@@ -270,6 +279,7 @@ def segment_flash_attention_pruned(
     tables = _tables_for(segment_ids, tables, block_q, block_kv, causal)
     kv_idx, kv_count = tables.kv_idx, tables.kv_count
     _check_cuda(q, k, v, segment_ids, kv_idx, kv_count)
+    _check_tc_cuda("forward", q=q, k=k, v=v)
     from repro_torch.kernels.build import load_library
 
     lib = load_library("flash_fwd")
@@ -336,7 +346,7 @@ def segment_flash_attention_bwd(
         return segment_flash_attention_bwd_ref(q, k, v, segment_ids, out, lse, do, causal, scale)
     segs = [segment_ids] if segment_ids is not None else []
     _check_cuda(q, k, v, out, lse, do, *segs)
-    _check_bwd_cuda(q, k, v, do)
+    _check_tc_cuda("backward", q=q, k=k, v=v, do=do)
     from repro_torch.kernels.build import load_library
 
     lib = load_library("flash_bwd")
@@ -385,7 +395,7 @@ def segment_flash_attention_bwd_pruned(
         return segment_flash_attention_bwd_ref(q, k, v, segment_ids, out, lse, do, causal, scale)
     tables = _tables_for(segment_ids, tables, block_q, block_kv, causal)
     _check_cuda(q, k, v, out, lse, do, segment_ids, *tables)
-    _check_bwd_cuda(q, k, v, do)
+    _check_tc_cuda("backward", q=q, k=k, v=v, do=do)
     from repro_torch.kernels.build import load_library
 
     lib = load_library("flash_bwd")

@@ -57,13 +57,22 @@ def _inputs(seed, b, s, h, kv, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 64, 16, 8, 128), (8, 256, 16, 8, 128), (3, 96, 4, 2, 64),
-                                   (2, 200, 4, 1, 32)])
-def test_kernels_vs_plain_and_bitexact(dtype, shape):
+@pytest.mark.parametrize("shape,q_scale", [
+    ((1, 64, 16, 8, 128), 1.0), ((8, 256, 16, 8, 128), 1.0), ((3, 96, 4, 2, 64), 1.0),
+    ((2, 200, 4, 1, 32), 1.0),
+    ((2, 256, 16, 8, 128), 4.0),  # peaked softmax: P near one-hot
+    ((2, 256, 16, 2, 128), 1.0),  # a GQA group of 8
+], ids=["1x64", "8x256", "3x96-d64", "2x200-block40", "2x256-peaked", "2x256-group8"])
+def test_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
+    """K1 (dense) and K4 (pruned) against the plain forward on valid rows
+    (out at the dtype's tolerance, lse at 2e-5), K4 == K1 bit for bit, and
+    exactly zero output on all-padding rows.  In bf16 both run on the tensor
+    cores with P rounded to bf16 before P·V."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     b, s, h, kv, d = shape
     q, k, v, seg = _inputs(0, b, s, h, kv, d, dtype)
+    q = (q.float() * q_scale).to(dtype)
     blk = fa.select_block(s, 128)  # 200 -> 40: a block that is not a power of two
     fa.reset_launches()
     o1, l1 = fa.segment_flash_attention(q, k, v, seg, block_q=blk, block_kv=blk, return_lse=True)
@@ -124,19 +133,23 @@ def test_backward_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_dense_backward_without_segments(dtype, causal):
-    """K2/K3 with no segment ids (every row valid), causal or not, against
-    the plain backward."""
+    """K1 and K2/K3 with no segment ids (every row valid), causal or not,
+    against the plain forward (out at the dtype's tolerance, lse at 2e-5)
+    and the plain backward."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, _ = _inputs(4, 2, 256, 16, 8, 128, dtype)
     kw = dict(causal=causal, block_q=128, block_kv=128)
     out, lse = fa.segment_flash_attention(q, k, v, None, return_lse=True, **kw)
+    ref_out, ref_lse = segment_flash_attention_ref(q, k, v, None, causal=causal, return_lse=True)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol, msg="out")
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5, msg="lse")
     do = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(5), device="cuda",
                      dtype=torch.float32).to(dtype)
     ours = fa.segment_flash_attention_bwd(q, k, v, None, out, lse, do, **kw)
     ref = segment_flash_attention_bwd_ref(q, k, v, None, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    tol = TOL[dtype]
     for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
 
@@ -150,17 +163,24 @@ def test_kernel_rejects_what_it_cannot_take():
                                    block_q=64, block_kv=64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.segment_flash_attention(q.half(), k.half(), v.half(), seg, block_q=64, block_kv=64)
-    # The bf16 backward copies rows in 16-byte pieces: D % 8 == 0, aligned rows.
+    # The bf16 kernels copy rows in 16-byte pieces: D % 8 == 0, aligned rows.
+    # Nothing falls back: the forward and the backward raise.
     q, k, v, seg = _inputs(1, 1, 64, 4, 2, 12, torch.bfloat16)
-    out, lse = fa.segment_flash_attention(q, k, v, seg, block_q=64, block_kv=64, return_lse=True)
+    out, lse = (t.contiguous() for t in segment_flash_attention_ref(q, k, v, seg, return_lse=True))
+    for fwd in (fa.segment_flash_attention, fa.segment_flash_attention_pruned):
+        with pytest.raises(ValueError, match="forward kernels take head dims that are multiples of 8"):
+            fwd(q, k, v, seg, block_q=64, block_kv=64)
     for bwd in (fa.segment_flash_attention_bwd, fa.segment_flash_attention_bwd_pruned):
-        with pytest.raises(ValueError, match="multiples of 8"):
+        with pytest.raises(ValueError, match="backward kernels take head dims that are multiples of 8"):
             bwd(q, k, v, seg, out, lse, out, block_q=64, block_kv=64)
     q, k, v, seg = _inputs(1, 1, 64, 4, 2, 32, torch.bfloat16)
     out, lse = fa.segment_flash_attention(q, k, v, seg, block_q=64, block_kv=64, return_lse=True)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:].view(q.shape)
     shifted.copy_(q)
-    with pytest.raises(ValueError, match="16-byte aligned"):
+    for fwd in (fa.segment_flash_attention, fa.segment_flash_attention_pruned):
+        with pytest.raises(ValueError, match="forward kernels take 16-byte aligned q, k and v"):
+            fwd(shifted, k, v, seg, block_q=64, block_kv=64)
+    with pytest.raises(ValueError, match="backward kernels take 16-byte aligned"):
         fa.segment_flash_attention_bwd(shifted, k, v, seg, out, lse, out, block_q=64, block_kv=64)
 
 

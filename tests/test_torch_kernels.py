@@ -7,6 +7,7 @@ Both sides get the same inputs, made with numpy from a seed.  Tolerances are
 against the plain version on the card by tests/test_torch_cuda.py.
 """
 
+import shutil
 import types
 
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from repro.kernels.flash_attention import (
     select_block as jax_select_block,
 )
 from repro.kernels.liveness import build_liveness_tables as jax_tables
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.liveness import build_liveness_tables
 from repro_torch.kernels.ops import flash_attention, resolve_grid
@@ -250,3 +252,90 @@ class TestBf16DkvRounding:
         tol = _tol("bfloat16")
         excess = np.abs(_to_np(dk) - ref) / (tol["atol"] + tol["rtol"] * np.abs(ref))
         assert excess.max() > 1.0
+
+
+def _fwd_bf16_model(q, k, v, seg, scale):
+    """The forward as the bf16 tensor-core kernel rounds it: fp32 scores from
+    the bf16 inputs (the scale applied in fp32), the fp32 softmax statistics
+    with l summed from the fp32 P, P rounded to bf16 before P·V, fp32 sums,
+    out stored in bf16.  Returns (out, lse = m + log(l) in fp32)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d)
+    pos = torch.arange(s)
+    allowed = ((pos[None, None, :] <= pos[None, :, None]) & (seg[:, :, None] == seg[:, None, :])
+               & (seg[:, None, :] > 0))[:, None, None]
+    scores = torch.where(allowed, torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(scores - torch.where(m <= NEG_INF, 0.0, m)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(l == 0.0, 1.0, l)
+    acc = torch.einsum("bkgqs,bskd->bqkgd", p.to(torch.bfloat16).float(), v.float())
+    out = (acc / denom.permute(0, 3, 1, 2, 4)).reshape(b, s, h, d).to(torch.bfloat16)
+    lse = torch.where(l > 0.0, m + torch.log(denom), NEG_INF)[..., 0]
+    return out, lse.permute(0, 3, 1, 2).reshape(b, s, h)
+
+
+class TestBf16FwdRounding:
+    """The bf16 forward kernels (K1, K4) round P to bf16 before P·V (the JAX
+    kernel keeps P in fp32) and sum l from the fp32 P.  This model of that
+    rounding stays within the bf16 tolerance of the JAX forward (interpret
+    mode, bf16 inputs) on the output and within the fp32 tolerance on lse,
+    also where the softmax is peaked (q × 4) and over a GQA group of 4."""
+
+    @pytest.mark.parametrize("grid", ["dense", "pruned"])
+    @pytest.mark.parametrize("shape,q_scale", [
+        ((2, 128, 4, 2, 32, 64, 64), 1.0),
+        ((3, 96, 8, 2, 16, 32, 96), 1.0),  # a GQA group of 4, one all-padding row
+        ((2, 128, 4, 2, 32, 64, 64), 4.0),
+        ((2, 256, 8, 2, 64, 128, 128), 4.0),
+    ], ids=["2x128", "3x96-group4", "2x128-peaked", "2x256-d64-peaked"])
+    def test_rounding_model_vs_jax_fwd(self, shape, q_scale, grid):
+        b, s, h, kv, d, bq, bk = shape
+        q, k, v, seg = make_inputs(8, b, s, h, kv, d)
+        q = q * np.float32(q_scale)
+        jfn = jax_pruned if grid == "pruned" else jax_dense
+        ref_out, ref_lse = jfn(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.asarray(seg),
+            block_q=bq, block_kv=bk, interpret=True, return_residuals=True,
+        )
+        out, lse = _fwd_bf16_model(_to_torch(q, "bfloat16"), _to_torch(k, "bfloat16"),
+                                   _to_torch(v, "bfloat16"), _to_torch(seg), 1.0 / d**0.5)
+        assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        np.testing.assert_allclose(_to_np(out), np.asarray(ref_out, np.float32), **_tol("bfloat16"))
+        np.testing.assert_allclose(_to_np(lse), np.asarray(ref_lse), **_tol("float32"))
+        assert np.all(_to_np(out)[seg == 0] == 0)
+        assert np.all(_to_np(lse)[seg == 0] == np.float32(NEG_INF))
+
+
+class TestBuild:
+    def test_library_path_hashes_the_shared_headers(self, tmp_path, monkeypatch):
+        """An edited or added header under csrc/ gives every library a new
+        path, so a stale build is never loaded."""
+        csrc = tmp_path / "csrc"
+        shutil.copytree(build.CSRC, csrc)
+        monkeypatch.setattr(build, "CSRC", csrc)
+        before = {name: build.library_path(name) for name in build.SOURCES}
+        assert before == {name: build.library_path(name) for name in build.SOURCES}
+        header = csrc / "tc_common.cuh"
+        header.write_text(header.read_text() + "\n// edited\n")
+        edited = {name: build.library_path(name) for name in build.SOURCES}
+        assert all(edited[name] != before[name] for name in build.SOURCES)
+        (csrc / "extra.cuh").write_text("#pragma once\n")
+        added = {name: build.library_path(name) for name in build.SOURCES}
+        assert all(added[name] != edited[name] for name in build.SOURCES)
+
+    def test_ptxas_spills_reads_each_function(self):
+        log = (
+            "ptxas info    : 0 bytes gmem\n"
+            "ptxas info    : Compiling entry function '_ZN2tc19flash_fwd_tc_kernelILb1EEEvPKi' for 'sm_90a'\n"
+            "ptxas info    : Function properties for _ZN2tc19flash_fwd_tc_kernelILb1EEEvPKi\n"
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+            "ptxas info    : Used 168 registers, used 1 barriers, 464 bytes cmem[0]\n"
+            "ptxas info    : Compiling entry function '_Z16flash_fwd_kernelIfLb0EEvPKT_' for 'sm_90a'\n"
+            "ptxas info    : Function properties for _Z16flash_fwd_kernelIfLb0EEvPKT_\n"
+            "    16 bytes stack frame, 24 bytes spill stores, 20 bytes spill loads\n"
+        )
+        assert build.ptxas_spills(log) == {
+            "_ZN2tc19flash_fwd_tc_kernelILb1EEEvPKi": 0, "_Z16flash_fwd_kernelIfLb0EEvPKT_": 44,
+        }
