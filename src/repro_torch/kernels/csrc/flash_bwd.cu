@@ -9,7 +9,8 @@
 //   dQ = scale * sum dS . K       (q-stationary pass)
 //   dK = scale * sum dS^T . Q,  dV = sum P^T . dO   (kv-stationary pass)
 //
-// Four kernels, two template instantiations of each pass:
+// Four entry points, each a template instantiation (dense, pruned) of one
+// pass, and each on two routes (below):
 //
 //   flash_bwd_dq  <dense>   replaces repro/kernels/flash_attention.py ::
 //                           segment_flash_attention_bwd, dQ pass (_bwd_dq_body,
@@ -29,7 +30,8 @@
 //
 // Each pruned kernel visits the live tiles of its dense twin in the same
 // order with the same tile routine, and every rounding step is an explicit
-// intrinsic, so K5 == K2 and K6 == K3 bit for bit.  There are no row
+// intrinsic, so K5 == K2 and K6 == K3 bit for bit on both routes (mma.sync's
+// sums are deterministic for the same operands).  There are no row
 // reductions in the backward (delta comes in precomputed); on the CUDA-core
 // route every output element is one sequential fma chain.
 //
@@ -41,65 +43,80 @@
 //
 // Two routes, chosen by the dtype (no switch):
 //
-// fp32 (all four kernels) and the bf16 dQ pass (K2, K5) run the CUDA-core
-// loop below.  A (128 x 128) tile pair at d_head 128 needs q, dO, k, v and a
+// fp32 (all four kernels) runs the CUDA-core loop below, the exact rail
+// (2e-5).  A (128 x 128) tile pair at d_head 128 needs q, dO, k, v and a
 // score tile, ~330 KB in fp32, above the 227 KB a block may use, so a block
 // owns kRows = 32 rows of its stationary block (a sub-range of the pinned q
 // block for dQ, of the kv block for dK/dV) and all rows of the moving block;
 // each thread keeps a 2 x 8 register micro-tile and every product is an
-// fp32 fma chain (no TF32), so fp32 stays the exact rail (2e-5).  Each
-// row's sums are independent of the other rows, so the liveness tables, the
-// visiting order and every row's arithmetic stay those of the pinned
-// (block_q, block_kv) pair.
+// fp32 fma chain (no TF32).  Each row's sums are independent of the other
+// rows, so the liveness tables, the visiting order and every row's
+// arithmetic stay those of the pinned (block_q, block_kv) pair.
 //
-// bf16 dK/dV (K3, K6; namespace tc) runs on the tensor cores:
+// bf16 (all four kernels; namespace tc) runs on the tensor cores,
+// mma.sync.m16n8k16 bf16 -> fp32, one 256-thread block per whole pinned tile
+// (one block per SM), warp w owning its rows 16w .. 16w+15 (warps past a
+// ragged tile idle):
 //
-// * Tile ownership.  One 256-thread block per (whole pinned kv tile of up to
-//   128 rows, kv head, batch row): 48 x 8 x 2 = 768 blocks at the training
-//   shape.  Warp w owns kv rows 16w .. 16w+15 (warps past the tile idle).
-//   K and V are copied once and stay in shared memory in bf16.
-// * The ring.  Each (group member, q block) step's q rows, dO rows, lse,
-//   delta and q segment ids go through a two-stage ring, filled by cp.async
-//   (16-byte copies; so D % 8 == 0 and 16-byte aligned rows, which the
-//   wrapper checks): the next live step's copies are issued before this
-//   step's math, and two barriers a step hand the stages over.  211,968
-//   bytes at d_head 128, one block per SM.
-// * Padding.  Tile rows are D rounded up to 16 plus 8 bf16, a pitch of 4
-//   banks modulo 32, so ldmatrix reads without bank conflicts.  Shared
-//   memory is zeroed once; the copies fill rows < block and columns < D, so
-//   the tails up to the MMA granularity stay 0 (masked entries are 0 x 0).
-// * Products.  mma.sync.m16n8k16 bf16 -> fp32.  Per 32-column chunk of the
-//   q block: S^T = K.Q^T and dP^T = V.dO^T (K, V as the A operand, the q
-//   rows as the column-major B operand, both by ldmatrix); P^T and
-//   scale.dS^T formed in the accumulator registers under the forward's
-//   mask; then, FlashAttention-2's reuse, two adjacent n8 accumulator tiles
-//   are one k16 A fragment: dV += P^T.dO and dK += (scale.dS)^T.Q with dO
-//   and Q by ldmatrix.trans.  P and dS never touch shared memory; dK and dV
-//   stay in fp32 registers over all steps and are written once, in bf16,
-//   for the tile's rows.  Registers: 128 for dK/dV and 32 for the chunk's
-//   S^T/dP^T (a 64-column chunk spills).
-// * Rounding.  P is rounded to bf16 (P is in [0, 1] and dV's terms do not
-//   cancel).  scale.dS is split into hi = rn(x) and lo = rn(x - hi), two
-//   bf16 terms and two products: its terms are large and cancel in dK, and
-//   one bf16 term leaves the 2e-2 tolerance on a peaked softmax (q x 4).
-// * Liveness.  K6 walks the column tables; K3 tests each q block with the
-//   _block_live rule, the segment ranges reduced by each warp with
-//   __reduce_min/max_sync (seg_range's result), so no thread waits on one.
-//
-// K6 == K3 still holds bit for bit: both visit the same live steps in the
-// same order through one step routine, and mma.sync's sums are
-// deterministic for the same operands.
+// * Loads.  Rows are copied by cp.async in 16-byte pieces (so D % 8 == 0 and
+//   16-byte aligned operands, which the wrapper checks) into rows of D
+//   rounded up to 16 plus 8 bf16, a pitch of 4 banks modulo 32, so ldmatrix
+//   reads without bank conflicts.  Shared memory is zeroed once; the copies
+//   fill rows < block and columns < D, so the tails up to the MMA
+//   granularity stay 0 (masked entries are 0 x 0).  The moving rows of each
+//   live step go through a two-stage ring: the next live step's copies are
+//   issued before this step's math, and two barriers a step hand the stages
+//   over.
+// * Products.  Per 32-column chunk of the moving tile, the scores and dP in
+//   the accumulator registers, P and scale.dS formed there under the mask;
+//   then, FlashAttention-2's reuse, two adjacent n8 accumulator tiles are one
+//   k16 A fragment of the second products, whose B operand comes by
+//   ldmatrix.trans.  P and dS never touch shared memory; the gradients stay
+//   in fp32 registers over the whole walk and are written once, in bf16.  A
+//   64-column chunk spills.
+// * dQ (K2, K5), q-stationary like the forward.  A block per (q block of up
+//   to 128 rows, q head, batch row): 48 x 16 x 2 = 1536 blocks at the
+//   training shape, the last q blocks first (the most live tiles under the
+//   causal mask, so the longest blocks start in the first wave).  The q and
+//   dO rows are copied once and kept in registers as ldmatrix A fragments;
+//   each thread keeps lse, delta and the segment id of its two rows in
+//   registers.  The ring carries each live kv tile's k and v rows and
+//   segment ids (209,920 bytes at d_head 128).  Per chunk: S = Q.K^T and
+//   dP = dO.V^T (K, V as the column-major B operand), then dQ +=
+//   (scale.dS).K with K by ldmatrix.trans; a chunk wholly above the
+//   diagonal of the warp's rows is skipped.  Registers: dQ 64, the q and dO
+//   fragments 64, the chunk's S and dP 32.
+// * dK/dV (K3, K6), kv-stationary.  A block per (kv tile of up to 128 rows,
+//   kv head, batch row): 48 x 8 x 2 = 768 blocks at the training shape.  K
+//   and V stay in shared memory; the ring carries each (group member, q
+//   block) step's q rows, dO rows, lse, delta and q segment ids (211,968
+//   bytes at d_head 128).  Per chunk of the q block: S^T = K.Q^T and
+//   dP^T = V.dO^T (K, V as the A operand, the q rows as the column-major B
+//   operand), then dV += P^T.dO and dK += (scale.dS)^T.Q with dO and Q by
+//   ldmatrix.trans.  The GQA group is summed in registers: dK/dV leave at
+//   kv-head resolution, with no atomics.  Registers: 128 for dK/dV and 32
+//   for the chunk's S^T/dP^T.
+// * Rounding.  P is rounded to bf16 for dV (P is in [0, 1] and dV's terms
+//   do not cancel).  scale.dS goes into dQ as one bf16 term, and into dK as
+//   two, hi = rn(x) and lo = rn(x - hi), one product each: on a peaked
+//   softmax (q x 4) one term leaves the 2e-2 tolerance in dK, whose large
+//   terms cancel, but stays within 0.26 of it in dQ (CPU models of both
+//   roundings against the JAX backward: tests/test_torch_kernels.py,
+//   TestBf16DqRounding and TestBf16DkvRounding).
+// * Liveness.  K5 and K6 walk the row and column tables; K2 and K3 test each
+//   moving block with the _block_live rule, the segment ranges reduced by
+//   each warp with __reduce_min/max_sync (warp_seg_range), so no thread
+//   waits on one.
 //
 // What bounds it on the H100 at the training shapes (two packed rows of up to
-// 6144 tokens, 16 q heads over 8 kv heads, d_head 128, bf16): the live
-// tiles' work is ~6 bq.bkv.D FLOPs (dQ) and ~8 bq.bkv.D (dK/dV) per
-// (row, q-head, tile), hundreds of GFLOP per layer, so by the card's peak
-// rates the passes are bound by operations, not bytes.  The CUDA-core route
-// reaches ~1 % of the tensor-core rate.  The bf16 dK/dV route is held back
-// by shared-memory traffic (each warp reads the whole q tile by ldmatrix, so
-// the eight warps read it eight times) and by latency: one 8-warp block per
-// SM, synchronous ldmatrix -> mma chains.  wgmma with TMA, and a dQ pass on
-// the tensor cores, are the next steps.
+// 6144 tokens, 16 q heads over 8 kv heads, d_head 128, bf16): the visible
+// (query, key) pairs cost 6 D FLOPs (dQ) and 8 D (dK/dV) per q head,
+// hundreds of GFLOP per layer, so by the card's peak rates the passes are
+// bound by operations, not bytes.  The CUDA-core route reaches ~1 % of the
+// tensor-core rate.  The bf16 route is held back by shared-memory traffic
+// (each warp reads the whole moving tile by ldmatrix, so the eight warps
+// read it eight times) and by latency: one 8-warp block per SM, synchronous
+// ldmatrix -> mma chains.  wgmma with TMA is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,32 +140,15 @@ constexpr int kDimTile = kMaxHeadDim / kLanes;  // head-dim columns per thread
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
 using tc::kSegBig;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Copy `rows` rows of `d` elements (row r at src + r * row_stride) into a
-// shared fp32 tile with leading dimension ld.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+// shared tile with leading dimension ld.
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
                                           int rows, int d, size_t row_stride,
                                           int ld) {
   for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
     const int r = idx / d;
     const int c = idx - r * d;
-    dst[r * ld + c] = to_float(src[r * row_stride + c]);
+    dst[r * ld + c] = src[r * row_stride + c];
   }
 }
 
@@ -329,8 +329,7 @@ __device__ __forceinline__ void accumulate(const float* w, const float* z,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            size_t row_stride, int R, int D,
                                            const float (&acc)[kRowTile][kDimTile]) {
   const int ti = threadIdx.x / kLanes;
@@ -342,21 +341,21 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
 #pragma unroll
     for (int dd = 0; dd < kDimTile; ++dd) {
       const int d = tj + kLanes * dd;
-      if (d < D) dst[r * row_stride + d] = from_float<T>(acc[rr][dd]);
+      if (d < D) dst[r * row_stride + d] = acc[rr][dd];
     }
   }
 }
 
 // dQ: one block per (32-row sub-range of a q block, q head, batch row).
-template <typename T, bool kPruned>
+template <bool kPruned>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ seg,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ seg,
                         const int* __restrict__ kv_idx,
                         const int* __restrict__ kv_count,
-                        const T* __restrict__ dout,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const float* __restrict__ delta, float* __restrict__ dq,
                         int S, int H, int KV, int D, int bq, int bkv,
                         int causal, float scale) {
   extern __shared__ float smem[];
@@ -433,16 +432,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // dK/dV: one block per (32-row sub-range of a kv block, kv head, batch row).
-template <typename T, bool kPruned>
+template <bool kPruned>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const int* __restrict__ seg,
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ seg,
                          const int* __restrict__ q_idx,
                          const int* __restrict__ q_count,
-                         const T* __restrict__ dout,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int S, int H, int KV, int D,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, int S, int H, int KV, int D,
                          int bq, int bkv, int causal, float scale) {
   extern __shared__ float smem[];
   __shared__ int live;
@@ -531,21 +530,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The bf16 dK/dV pass on the tensor cores (K3 and K6 when the inputs are
+// The bf16 passes on the tensor cores (K2, K3, K5 and K6 when the inputs are
 // bf16; see the note at the head of the file).  The helpers are in
 // tc_common.cuh.
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-constexpr int kTileRows = 128;            // kv rows of a block: a whole pinned tile
-constexpr int kChunk = 32;                // q columns of one register chunk
+constexpr int kChunk = 32;                // moving-tile columns of one register chunk
 constexpr int kChunkTiles = kChunk / 8;   // n8 accumulator tiles of a chunk
-constexpr int kDimTiles = kMaxHeadDim / 8;  // n8 accumulator tiles of dK (and dV)
+constexpr int kDimTiles = kMaxHeadDim / 8;  // n8 accumulator tiles of dQ, dK and dV
+constexpr int kRowFrags = kMaxHeadDim / 16;  // k16 A fragments of a q or dO row block
 
-// Byte offsets into the block's dynamic shared memory: the K and V tiles,
-// then two ring stages of stage_bytes each (q rows, dO rows, lse, delta and
-// the q rows' segment ids).  Plain scalars, so nothing is indexed at run
+// The dK/dV pass's shared memory, in byte offsets: the K and V tiles, then
+// two ring stages of stage_bytes each (q rows, dO rows, lse, delta and the
+// q rows' segment ids).  Plain scalars, so nothing is indexed at run
 // time and nothing lands in local memory.
 struct Layout {
   unsigned tile, v, ring, stage_bytes, o, lse, delta, seg, total;
@@ -862,6 +861,289 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The dQ pass's shared memory: the pinned q and dO tiles (dO at L.tile),
+// then the kv ring (tc_common.cuh).
+__host__ __device__ __forceinline__ KvRingLayout dq_layout(int D) { return kv_ring_layout(D, 2); }
+
+// One live kv tile for this warp's q rows r0 .. r0+15: dq += (scale dS) . K,
+// the tile taken in chunks of kChunk columns.  Per chunk: S = Q . K^T and
+// dP = dO . V^T on the tensor cores (the q and dO rows as register A
+// fragments, the k and v rows as the column-major B operand by ldmatrix);
+// P and scale dS in the accumulator registers under the mask; then those
+// registers, scale dS rounded to one bf16 term, are the A operand of
+// dQ += (scale dS) . K with K by ldmatrix.trans.  Element e of n8 tile j is
+// q row r0 + g (+8 for e >= 2) and column 8j + 2 tig (+1 for odd e);
+// nlse[i] = -lse * log2(e) and delta[i] belong to the thread's rows
+// r0 + g + 8i.
+__device__ __forceinline__ void dq_step(const uint32_t (&qf)[kRowFrags][4],
+                                        const uint32_t (&of)[kRowFrags][4],
+                                        const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                        const int* kseg, int pitch_, int dpad, int bq, int bkv,
+                                        int q_pos0, int k_pos0, bool causal, bool has_seg,
+                                        const int (&qseg)[2], const float (&nlse)[2],
+                                        const float (&delta)[2], float scale,
+                                        float (&dq)[kDimTiles][4]) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const int g = lane / 4, tig = lane % 4;
+  // ldmatrix.x4 row addresses.  K and V as the plain B operand: (rows 0-7,
+  // cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15), the k halves of two
+  // n8 tiles.  K as the trans B operand: (0-7, 0-7), (8-15, 0-7), (0-7,
+  // 8-15), (8-15, 8-15).
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = (lane >> 4) * 8;
+  const uint32_t k_addr = smem_addr(ks + b_row * pitch_ + b_col);
+  const uint32_t v_addr = smem_addr(vs + b_row * pitch_ + b_col);
+  const uint32_t kt_addr = smem_addr(ks + t_row * pitch_ + t_col);
+  const uint32_t row_bytes = 2u * pitch_;
+  const float scale_log2 = __fmul_rn(scale, kLog2e);
+
+  for (int c0 = 0; c0 < bkv; c0 += kChunk) {
+    // Every key from here on lies after every query of the warp.
+    if (causal && k_pos0 + c0 > q_pos0 + r0 + 15) break;
+
+    float s[kChunkTiles][4], dp[kChunkTiles][4];
+#pragma unroll
+    for (int j = 0; j < kChunkTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < kRowFrags; ++kk) {
+      if (16 * kk < dpad) {
+#pragma unroll
+        for (int jp = 0; jp < kChunkTiles / 2; ++jp) {
+          if (c0 + 16 * jp < bkv) {
+            const uint32_t off = (c0 + 16 * jp) * row_bytes + 32 * kk;
+            uint32_t bk[4], bv[4];
+            ldsm_x4(bk, k_addr + off);
+            ldsm_x4(bv, v_addr + off);
+            mma_bf16(s[2 * jp], qf[kk], bk[0], bk[1]);
+            mma_bf16(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+            mma_bf16(dp[2 * jp], of[kk], bv[0], bv[1]);
+            mma_bf16(dp[2 * jp + 1], of[kk], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+
+    // A piece the mask cannot touch (all its rows and columns inside the
+    // blocks, every key at or before every query, one positive segment
+    // throughout) skips the per-element test; the arithmetic is the same.
+    bool open = r0 + 16 <= bq && c0 + kChunk <= bkv &&
+                (!causal || k_pos0 + c0 + kChunk - 1 <= q_pos0 + r0);
+    if (open && has_seg) {
+      const int id = __shfl_sync(0xffffffffu, qseg[0], 0);
+      bool same = qseg[0] == id && qseg[1] == id && id > 0;
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j) {
+        const int2 ids = *reinterpret_cast<const int2*>(kseg + c0 + 8 * j + 2 * tig);
+        same = same && ids.x == id && ids.y == id;
+      }
+      open = __all_sync(0xffffffffu, same);
+    }
+
+    // scale dS = scale P (dP - delta), P built from the mask, never from
+    // exp(S - NEG_INF); it overwrites dp.
+    auto ds = [&](float s_, float& dp_, int i) {  // a visible entry of row half i
+      const float p = exp2f(__fmaf_rn(s_, scale_log2, nlse[i]));
+      dp_ = __fmul_rn(__fmul_rn(p, __fsub_rn(dp_, delta[i])), scale);
+    };
+    if (open) {
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds(s[j][e], dp[j][e], e >> 1);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + (e >> 1) * 8;
+          const int c = c0 + 8 * j + 2 * tig + (e & 1);
+          bool ok = r < bq && c < bkv;
+          if (causal) ok = ok && k_pos0 + c <= q_pos0 + r;
+          if (has_seg) ok = ok && kseg[c] > 0 && kseg[c] == qseg[e >> 1];
+          if (ok)
+            ds(s[j][e], dp[j][e], e >> 1);
+          else
+            dp[j][e] = 0.f;
+        }
+    }
+
+    // dQ += (scale dS) . K, scale dS rounded to bf16.
+#pragma unroll
+    for (int kk = 0; kk < kChunkTiles / 2; ++kk) {
+      if (c0 + 16 * kk < bkv) {
+        const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                               pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                               pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                               pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+        const uint32_t off = (c0 + 16 * kk) * row_bytes;
+#pragma unroll
+        for (int n = 0; n < kDimTiles / 2; ++n) {
+          if (16 * n < dpad) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, kt_addr + off + 32 * n);
+            mma_bf16(dq[2 * n], a, b[0], b[1]);
+            mma_bf16(dq[2 * n + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// dQ in bf16: one block per (whole pinned q block, q head, batch row), the
+// last q blocks first; warp w owns q rows 16w .. 16w+15 of the block.
+template <bool kPruned>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                           const int* __restrict__ kv_idx, const int* __restrict__ kv_count,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int D, int bq,
+                           int bkv, int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const KvRingLayout L = dq_layout(D);
+  const int nq = S / bq, nk = S / bkv;
+  const int heads_rows = gridDim.x / nq;  // H * B
+  const int block = blockIdx.x;
+  const int qb = nq - 1 - block / heads_rows;
+  const int h = block % H, b = (block % heads_rows) / H;
+  const int kvh = h / (H / KV);
+  const int q0 = qb * bq;
+  const bool has_seg = seg != nullptr;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = (tid / 32) * 16, g = lane / 4, tig = lane % 4;
+  const int pitch_ = pitch(D), dpad = padded_dim(D), d8 = D / 8;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.tile);
+
+  // Zero everything once: the copies below fill only rows < bq (bkv) and
+  // columns < D, so the tails up to the MMA granularity stay zero (masked
+  // entries are then 0 x 0, never 0 x garbage).
+  for (unsigned i = tid; i < L.total / 16; i += kThreads)
+    reinterpret_cast<uint4*>(tc_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const size_t q_off = (row0 + q0) * q_stride + static_cast<size_t>(h) * D;
+  for (int idx = tid; idx < bq * d8; idx += kThreads) {
+    const int r = idx / d8, c = (idx - r * d8) * 8;
+    cp_async16(qs + r * pitch_ + c, q + q_off + r * q_stride + c);
+    cp_async16(os + r * pitch_ + c, dout + q_off + r * q_stride + c);
+  }
+  cp_async_commit();
+
+  // This thread's two q rows: segment ids, -lse * log2(e) and delta; and
+  // (dense liveness) the whole pinned q block's segment range, reduced by
+  // each warp.
+  int qseg[2] = {0, 0};
+  float nlse[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    if (r < bq) {
+      const size_t pos = row0 + q0 + r;
+      nlse[i] = -__fmul_rn(lse[pos * H + h], kLog2e);
+      dlt[i] = delta[pos * H + h];
+      if (has_seg) qseg[i] = seg[pos];
+    }
+  }
+  int q_lo = kSegBig, q_hi = 0;
+  if (!kPruned && has_seg) warp_seg_range(seg + row0 + q0, bq, q_lo, q_hi);
+
+  // The walk: kv blocks ascending; the dense kernel skips the dead ones by
+  // the _block_live rule.
+  const int row_tables = b * nq + qb;
+  const int n_steps = kPruned ? kv_count[row_tables] : nk;
+  auto kv_block = [&](int t) {
+    return kPruned ? kv_idx[static_cast<size_t>(row_tables) * nk + t] : t;
+  };
+  auto next_live = [&](int t) {
+    return kPruned ? t
+                   : next_live_kv(t, n_steps, q0, bq, bkv, causal != 0,
+                                  has_seg ? seg + row0 : nullptr, q_lo, q_hi);
+  };
+  auto stage = [&](int s) { return tc_smem + L.ring + s * L.stage_bytes; };
+  auto issue = [&](int t, int s) {  // cp.async the tile's k, v rows and segment ids into stage s
+    const int k0 = kv_block(t) * bkv;
+    copy_kv_tile(stage(s), L, k, v, (row0 + k0) * kv_stride + static_cast<size_t>(kvh) * D,
+                 kv_stride, has_seg ? seg + row0 + k0 : nullptr, bkv, D);
+  };
+
+  float acc[kDimTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDimTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int t = next_live(0);
+  if (t < n_steps) issue(t, 0);
+  cp_async_commit();
+  cp_async_wait_prev();  // the q and dO tiles have landed
+  __syncthreads();
+  uint32_t qf[kRowFrags][4], of[kRowFrags][4];
+  {
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+    const uint32_t q_addr = smem_addr(qs + (r0 + a_row) * pitch_ + a_col);
+    const uint32_t o_addr = smem_addr(os + (r0 + a_row) * pitch_ + a_col);
+#pragma unroll
+    for (int kk = 0; kk < kRowFrags; ++kk) {
+      if (16 * kk < dpad) {
+        ldsm_x4(qf[kk], q_addr + 32 * kk);
+        ldsm_x4(of[kk], o_addr + 32 * kk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qf[kk][e] = 0u;
+          of[kk][e] = 0u;
+        }
+      }
+    }
+  }
+
+  // A two-stage ring: tile t+1's copies are in flight while tile t computes.
+  for (int s = 0; t < n_steps; s ^= 1) {
+    const int t_next = next_live(t + 1);
+    if (t_next < n_steps) issue(t_next, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    if (r0 < bq) {
+      const unsigned char* base = stage(s);
+      dq_step(qf, of, reinterpret_cast<const __nv_bfloat16*>(base),
+              reinterpret_cast<const __nv_bfloat16*>(base + L.v),
+              reinterpret_cast<const int*>(base + L.seg), pitch_, dpad, bq, bkv, q0,
+              kv_block(t) * bkv, causal != 0, has_seg, qseg, nlse, dlt, scale, acc);
+    }
+    __syncthreads();  // stage s is refilled by the next iteration's copies
+    t = t_next;
+  }
+  cp_async_wait_all();
+
+  // dQ leaves once, in bf16, for the block's rows only.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= bq) continue;
+    __nv_bfloat16* dq_row = dq + q_off + r * q_stride;
+#pragma unroll
+    for (int n = 0; n < kDimTiles; ++n) {
+      const int c = 8 * n + 2 * tig;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(dq_row + c) =
+            __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
 }  // namespace tc
 
 namespace {
@@ -880,41 +1162,63 @@ cudaError_t prepare(int device, Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, bool kPruned>
+// The fp32 passes.
+template <bool kPruned>
 int launch_dq(int device, const void* q, const void* k, const void* v,
               const int* seg, const int* kv_idx, const int* kv_count,
               const void* dout, const float* lse, const float* delta, void* dq,
               int B, int S, int H, int KV, int D, int bq, int bkv, int causal,
               float scale, void* stream) {
   const size_t smem = smem_bytes(D, bkv);
-  auto kernel = flash_bwd_dq_kernel<T, kPruned>;
+  auto kernel = flash_bwd_dq_kernel<kPruned>;
   cudaError_t err = prepare(device, kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S / bq) * ((bq + kRows - 1) / kRows), H, B);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, kv_idx, kv_count,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, H, KV,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg, kv_idx, kv_count,
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, H, KV,
       D, bq, bkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kPruned>
+template <bool kPruned>
 int launch_dkv(int device, const void* q, const void* k, const void* v,
                const int* seg, const int* q_idx, const int* q_count,
                const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int B, int S, int H, int KV, int D, int bq,
                int bkv, int causal, float scale, void* stream) {
   const size_t smem = smem_bytes(D, bq);
-  auto kernel = flash_bwd_dkv_kernel<T, kPruned>;
+  auto kernel = flash_bwd_dkv_kernel<kPruned>;
   cudaError_t err = prepare(device, kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S / bkv) * ((bkv + kRows - 1) / kRows), KV, B);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, q_idx, q_count,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), S, H, KV, D, bq, bkv, causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg, q_idx, q_count,
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, KV, D, bq, bkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 dQ pass.
+template <bool kPruned>
+int launch_dq_tc(int device, const void* q, const void* k, const void* v, const int* seg,
+                 const int* kv_idx, const int* kv_count, const void* dout, const float* lse,
+                 const float* delta, void* dq, int B, int S, int H, int KV, int D, int bq,
+                 int bkv, int causal, float scale, void* stream) {
+  const void* ptrs[] = {q, k, v, dout, dq};
+  if (!tc::rows_copyable(ptrs, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tc::dq_layout(D).total;
+  auto kernel = tc::flash_bwd_dq_tc_kernel<kPruned>;
+  cudaError_t err = prepare(device, kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(S / bq) * H * B;
+  using bf16 = __nv_bfloat16;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
+      kv_idx, kv_count, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, H,
+      KV, D, bq, bkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,14 +1251,13 @@ int dispatch_dq(int dtype, int device, const void* q, const void* k,
                 int D, int bq, int bkv, int causal, float scale, void* stream) {
   if (bad_shape(S, H, KV, D, bq, bkv)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_dq<float, kPruned>(device, q, k, v, seg, kv_idx, kv_count,
-                                     dout, lse, delta, dq, B, S, H, KV, D, bq,
-                                     bkv, causal, scale, stream);
-  if (dtype == 1)
-    return launch_dq<__nv_bfloat16, kPruned>(device, q, k, v, seg, kv_idx,
-                                             kv_count, dout, lse, delta, dq,
-                                             B, S, H, KV, D, bq, bkv, causal,
-                                             scale, stream);
+    return launch_dq<kPruned>(device, q, k, v, seg, kv_idx, kv_count, dout, lse,
+                              delta, dq, B, S, H, KV, D, bq, bkv, causal, scale,
+                              stream);
+  if (dtype == 1)  // bf16: the tensor-core kernel
+    return launch_dq_tc<kPruned>(device, q, k, v, seg, kv_idx, kv_count, dout,
+                                 lse, delta, dq, B, S, H, KV, D, bq, bkv, causal,
+                                 scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -967,9 +1270,9 @@ int dispatch_dkv(int dtype, int device, const void* q, const void* k,
                  void* stream) {
   if (bad_shape(S, H, KV, D, bq, bkv)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_dkv<float, kPruned>(device, q, k, v, seg, q_idx, q_count,
-                                      dout, lse, delta, dk, dv, B, S, H, KV,
-                                      D, bq, bkv, causal, scale, stream);
+    return launch_dkv<kPruned>(device, q, k, v, seg, q_idx, q_count, dout, lse,
+                               delta, dk, dv, B, S, H, KV, D, bq, bkv, causal,
+                               scale, stream);
   if (dtype == 1)  // bf16: the tensor-core kernel
     return launch_dkv_tc<kPruned>(device, q, k, v, seg, q_idx, q_count, dout,
                                   lse, delta, dk, dv, B, S, H, KV, D, bq, bkv,

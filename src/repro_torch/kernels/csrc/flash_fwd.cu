@@ -374,29 +374,13 @@ int launch(int device, const void* q, const void* k, const void* v,
 
 namespace tc {
 
-constexpr int kTileRows = 128;              // rows of a q or kv tile: a whole pinned block
 constexpr int kHalf = 64;                   // kv columns of one online-softmax update
 constexpr int kHalfTiles = kHalf / 8;       // n8 score tiles of a half
 constexpr int kOutTiles = kMaxHeadDim / 8;  // n8 tiles of the output rows
 constexpr int kQFrags = kMaxHeadDim / 16;   // k16 A fragments of the q rows
 
-// Byte offsets into the block's dynamic shared memory: the q tile, then two
-// ring stages of stage_bytes each (the kv tile's k rows, v rows and segment
-// ids).
-struct FwdLayout {
-  unsigned tile, ring, v, seg, stage_bytes, total;
-};
-
-__host__ __device__ __forceinline__ FwdLayout fwd_layout(int D) {
-  FwdLayout L;
-  L.tile = kTileRows * pitch(D) * 2;
-  L.ring = L.tile;
-  L.v = L.tile;  // within a stage; the k rows start at 0
-  L.seg = 2 * L.tile;
-  L.stage_bytes = L.seg + kTileRows * 4;
-  L.total = L.ring + 2 * L.stage_bytes;
-  return L;
-}
+// Shared memory: the q tile, then the kv ring (tc_common.cuh).
+__host__ __device__ __forceinline__ KvRingLayout fwd_layout(int D) { return kv_ring_layout(D, 1); }
 
 // One live kv tile for this warp's q rows r0 .. r0+15: the online-softmax
 // update of (m, l, o), 64 kv columns at a time.  Element e of n8 accumulator
@@ -553,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
                         int KV, int D, int bq, int bkv, int causal, float scale) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  const FwdLayout L = fwd_layout(D);
+  const KvRingLayout L = fwd_layout(D);
   const int nq = S / bq, nk = S / bkv;
   const int heads_rows = gridDim.x / nq;  // H * B
   const int block = blockIdx.x;
@@ -601,35 +585,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     return kPruned ? kv_idx[static_cast<size_t>(row_tables) * nk + t] : t;
   };
   auto next_live = [&](int t) {
-    if constexpr (!kPruned) {
-      for (; t < n_steps; ++t) {
-        const int k0 = t * bkv;
-        bool ok = !causal || q0 + bq - 1 >= k0;
-        if (ok && has_seg) {
-          int k_lo, k_hi;
-          warp_seg_range(seg + row0 + k0, bkv, k_lo, k_hi);
-          ok = q_hi > 0 && k_hi > 0 && q_hi >= k_lo && k_hi >= q_lo;
-        }
-        if (ok) break;
-      }
-    }
-    return t;
+    return kPruned ? t
+                   : next_live_kv(t, n_steps, q0, bq, bkv, causal != 0,
+                                  has_seg ? seg + row0 : nullptr, q_lo, q_hi);
   };
   auto stage = [&](int s) { return tc_smem + L.ring + s * L.stage_bytes; };
   auto issue = [&](int t, int s) {  // cp.async the tile's k, v rows and segment ids into stage s
     const int k0 = kv_block(t) * bkv;
-    unsigned char* base = stage(s);
-    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(base);
-    __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(base + L.v);
-    const size_t off = (row0 + k0) * kv_stride + static_cast<size_t>(kvh) * D;
-    for (int idx = tid; idx < bkv * d8; idx += kThreads) {
-      const int r = idx / d8, c = (idx - r * d8) * 8;
-      cp_async16(ks + r * pitch_ + c, k + off + r * kv_stride + c);
-      cp_async16(vs + r * pitch_ + c, v + off + r * kv_stride + c);
-    }
-    if (has_seg)
-      for (int i = tid; i < bkv; i += kThreads)
-        cp_async4(reinterpret_cast<int*>(base + L.seg) + i, seg + row0 + k0 + i);
+    copy_kv_tile(stage(s), L, k, v, (row0 + k0) * kv_stride + static_cast<size_t>(kvh) * D,
+                 kv_stride, has_seg ? seg + row0 + k0 : nullptr, bkv, D);
   };
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};

@@ -19,18 +19,18 @@ Backward, four kernels in ``csrc/flash_bwd.cu``, two passes per grid:
   row tables (dQ) and the column tables (dK/dV), bit-exact against the dense
   pair.
 
-The dtype picks the route of the forward and of the dK/dV pass.  In bf16
-they run on the tensor cores (``mma.sync`` fed by a cp.async ring, one block
-per whole pinned tile): the forward rounds P to bf16 before P·V (the
-softmax statistics and ``lse`` stay fp32), the dK/dV pass rounds P to bf16
-and carries scale·dS as two bf16 terms.  Both copy rows in 16-byte pieces,
-so they take head dims that are multiples of 8 and 16-byte aligned inputs;
-the wrappers raise a ``ValueError`` otherwise, with no fallback.  In fp32,
-and for every dQ pass, the products are fp32 fma chains on the CUDA cores
-(the exact rail).  Both backward wrappers take the forward's ``(out, lse)``
-and compute ``delta = rowsum(dO ⊙ O)`` in fp32 as one PyTorch reduction
-before the kernels.  All six are built for ``sm_90a`` at first use
-(``kernels/build.py``).
+The dtype picks the route of every kernel.  In bf16 all six run on the
+tensor cores (``mma.sync`` fed by a cp.async ring, one block per whole pinned
+tile): the forward rounds P to bf16 before P·V (the softmax statistics and
+``lse`` stay fp32); the dQ pass rounds scale·dS to one bf16 term before
+dS·K; the dK/dV pass rounds P to bf16 and carries scale·dS as two bf16
+terms.  They copy rows in 16-byte pieces, so they take head dims that are
+multiples of 8 and 16-byte aligned inputs; the wrappers raise a
+``ValueError`` otherwise, with no fallback.  In fp32 the products are fp32
+fma chains on the CUDA cores (the exact rail).  Both backward wrappers take
+the forward's ``(out, lse)`` and compute ``delta = rowsum(dO ⊙ O)`` in fp32
+as one PyTorch reduction before the kernels.  All six are built for
+``sm_90a`` at first use (``kernels/build.py``).
 
 A wrapper given CUDA tensors launches its kernels or raises; given CPU
 tensors it computes the plain version (``kernels/ref.py``).  Each launch adds
@@ -152,9 +152,9 @@ def _check_cuda(*tensors):
 
 
 def _check_tc_cuda(direction: str, **tensors: torch.Tensor) -> None:
-    """The bf16 tensor-core kernels (the forward and the dK/dV pass) copy rows
-    in 16-byte pieces: they take head dims that are multiples of 8 and
-    16-byte aligned inputs."""
+    """The bf16 kernels (all on the tensor cores) copy rows in 16-byte
+    pieces: they take head dims that are multiples of 8 and 16-byte aligned
+    inputs."""
     first = next(iter(tensors.values()))
     if first.dtype != torch.bfloat16:
         return

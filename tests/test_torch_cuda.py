@@ -101,8 +101,8 @@ def test_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
 def test_backward_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
     """K2/K3 (dense) and K5/K6 (pruned) against the plain backward on valid
     rows, K5 == K2 and K6 == K3 bit for bit, and exactly zero gradients on
-    all-padding rows.  In bf16 the dK/dV pass runs on the tensor cores with
-    P and scale·dS rounded to bf16 (the same tolerance holds)."""
+    all-padding rows.  In bf16 both passes run on the tensor cores with P
+    and scale·dS rounded to bf16 (the same tolerance holds)."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     b, s, h, kv, d = shape

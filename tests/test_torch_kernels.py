@@ -170,12 +170,15 @@ class TestBlocksAndTables:
         assert fa.LAUNCHES == dict.fromkeys(fa.LAUNCHES, 0) and len(fa.LAUNCHES) == 6
 
 
-def _bwd_bf16_dkv_model(q, k, v, seg, out, lse, do, scale, split_ds=True):
-    """dK and dV as the bf16 tensor-core kernel rounds them: the plain
-    backward (fp32 from bf16 inputs), with P rounded to bf16 before
-    dV = Σ Pᵀ·dO, and scale·dS as the sum of two bf16 terms (hi = rn(x),
-    lo = rn(x − hi); one term with ``split_ds=False``) before
-    dK = Σ (scale·dS)ᵀ·Q; fp32 sums, stored in bf16."""
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bwd_p_ds(q, k, v, seg, out, lse, do, scale):
+    """The backward's recompute as the bf16 tensor-core kernels do it, in
+    fp32 from the bf16 inputs: P = exp(scale·QKᵀ − lse) under the mask (0
+    elsewhere) and scale·dS = scale·P∘(dO·Vᵀ − delta), both (B, KV, G, Sq,
+    Sk), with q and do grouped as (B, S, KV, G, D)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -185,9 +188,6 @@ def _bwd_bf16_dkv_model(q, k, v, seg, out, lse, do, scale, split_ds=True):
     def per_q_row(x):  # (B, S, H) -> (B, KV, G, S, 1)
         return x.float().reshape(b, s, kv, g).permute(0, 2, 3, 1)[..., None]
 
-    def bf16(x):
-        return x.to(torch.bfloat16).float()
-
     pos = torch.arange(s)
     allowed = (pos[None, None, :] <= pos[None, :, None]) & (seg[:, :, None] == seg[:, None, :]) & (
         seg[:, None, :] > 0
@@ -196,15 +196,34 @@ def _bwd_bf16_dkv_model(q, k, v, seg, out, lse, do, scale, split_ds=True):
     p = torch.where(allowed[:, None, None], torch.exp(scores - per_q_row(lse)), 0.0)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
     ds = p * (dp - per_q_row((do.float() * out.float()).sum(-1))) * scale
-    ds_hi = bf16(ds)
-    ds_used = ds_hi + bf16(ds - ds_hi) if split_ds else ds_hi
+    return qg, dog, p, ds
+
+
+def _bwd_bf16_dkv_model(q, k, v, seg, out, lse, do, scale, split_ds=True):
+    """dK and dV as the bf16 tensor-core kernel rounds them: P rounded to
+    bf16 before dV = Σ Pᵀ·dO, and scale·dS as the sum of two bf16 terms
+    (hi = rn(x), lo = rn(x − hi); one term with ``split_ds=False``) before
+    dK = Σ (scale·dS)ᵀ·Q; fp32 sums, stored in bf16."""
+    qg, dog, p, ds = _bwd_p_ds(q, k, v, seg, out, lse, do, scale)
+    ds_hi = _bf16(ds)
+    ds_used = ds_hi + _bf16(ds - ds_hi) if split_ds else ds_hi
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds_used, qg)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", bf16(p), dog)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", _bf16(p), dog)
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
-def _jax_bwd_and_model(shape, q_scale, split_ds=True):
-    """(model dk, dv), (JAX dk, dv) and the segment ids for one case."""
+def _bwd_bf16_dq_model(q, k, v, seg, out, lse, do, scale):
+    """dQ as the bf16 tensor-core kernel rounds it: scale·dS rounded to one
+    bf16 term before dQ = Σ (scale·dS)·K; fp32 sums, stored in bf16."""
+    _, _, _, ds = _bwd_p_ds(q, k, v, seg, out, lse, do, scale)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", _bf16(ds), k.float())
+    return dq.reshape(q.shape).to(torch.bfloat16)
+
+
+def _jax_bwd_case(shape, q_scale):
+    """One bf16 case: the models' arguments (torch tensors, with the JAX
+    forward's out and lse), the JAX backward's (dq, dk, dv) in interpret
+    mode, and the segment ids."""
     b, s, h, kv, d, bq, bk = shape
     q, k, v, seg = make_inputs(6, b, s, h, kv, d)
     q = q * np.float32(q_scale)
@@ -213,13 +232,13 @@ def _jax_bwd_and_model(shape, q_scale, split_ds=True):
     jseg = jnp.asarray(seg)
     out, lse = jax_dense(jq, jk, jv, jseg, block_q=bq, block_kv=bk, interpret=True,
                          return_residuals=True)
-    _, jdk, jdv = jax_bwd(jq, jk, jv, jseg, out, lse, jdo, block_q=bq, block_kv=bk, interpret=True)
-    ours = _bwd_bf16_dkv_model(
+    grads = jax_bwd(jq, jk, jv, jseg, out, lse, jdo, block_q=bq, block_kv=bk, interpret=True)
+    args = (
         _to_torch(q, "bfloat16"), _to_torch(k, "bfloat16"), _to_torch(v, "bfloat16"),
         _to_torch(seg), _to_torch(np.asarray(out, np.float32), "bfloat16"),
-        _to_torch(np.array(lse)), _to_torch(do, "bfloat16"), 1.0 / d**0.5, split_ds=split_ds,
+        _to_torch(np.array(lse)), _to_torch(do, "bfloat16"), 1.0 / d**0.5,
     )
-    return ours, (np.asarray(jdk, np.float32), np.asarray(jdv, np.float32)), seg
+    return args, tuple(np.asarray(grad, np.float32) for grad in grads), seg
 
 
 PEAKED_D64 = (2, 256, 8, 2, 64, 128, 128)  # q x 4: one bf16 term of scale·dS is not enough here
@@ -239,7 +258,8 @@ class TestBf16DkvRounding:
         (PEAKED_D64, 4.0),
     ], ids=["2x128", "3x96-group4", "2x128-peaked", "2x256-d64-peaked"])
     def test_rounding_model_vs_jax_bwd(self, shape, q_scale):
-        (dk, dv), theirs, seg = _jax_bwd_and_model(shape, q_scale)
+        args, (_, *theirs), seg = _jax_bwd_case(shape, q_scale)
+        dk, dv = _bwd_bf16_dkv_model(*args)
         for ours, ref in zip((dk, dv), theirs):
             assert ours.dtype == torch.bfloat16
             np.testing.assert_allclose(_to_np(ours), ref, **_tol("bfloat16"))
@@ -248,10 +268,34 @@ class TestBf16DkvRounding:
     def test_one_bf16_term_of_ds_misses_the_tolerance(self):
         """Why the kernel splits scale·dS: rounded once to bf16, dK leaves
         the tolerance on the peaked case that the split model meets."""
-        (dk, _), (ref, _), _ = _jax_bwd_and_model(PEAKED_D64, 4.0, split_ds=False)
+        args, (_, ref, _), _ = _jax_bwd_case(PEAKED_D64, 4.0)
+        dk, _ = _bwd_bf16_dkv_model(*args, split_ds=False)
         tol = _tol("bfloat16")
         excess = np.abs(_to_np(dk) - ref) / (tol["atol"] + tol["rtol"] * np.abs(ref))
         assert excess.max() > 1.0
+
+
+class TestBf16DqRounding:
+    """The bf16 dQ kernels (K2, K5) round scale·dS to one bf16 term before
+    dQ = Σ (scale·dS)·K (the JAX kernel keeps it in fp32).  This model of
+    that rounding stays within the bf16 tolerance of the JAX dQ (interpret
+    mode, bf16 inputs) on the dK/dV model's cases, the peaked d_head-64 one
+    that needs two terms for dK among them, and at d_head 128 over rows of
+    up to 512 keys."""
+
+    @pytest.mark.parametrize("shape,q_scale", [
+        ((2, 128, 4, 2, 32, 64, 64), 1.0),
+        ((3, 96, 8, 2, 16, 32, 96), 1.0),
+        ((2, 128, 4, 2, 32, 64, 64), 4.0),
+        (PEAKED_D64, 4.0),
+        ((1, 512, 4, 2, 128, 128, 128), 1.0),
+    ], ids=["2x128", "3x96-group4", "2x128-peaked", "2x256-d64-peaked", "1x512-d128"])
+    def test_rounding_model_vs_jax_bwd(self, shape, q_scale):
+        args, (ref, _, _), seg = _jax_bwd_case(shape, q_scale)
+        dq = _bwd_bf16_dq_model(*args)
+        assert dq.dtype == torch.bfloat16
+        np.testing.assert_allclose(_to_np(dq), ref, **_tol("bfloat16"))
+        assert np.all(_to_np(dq)[seg == 0] == 0)
 
 
 def _fwd_bf16_model(q, k, v, seg, scale):
