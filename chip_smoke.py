@@ -52,7 +52,11 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                version, y and the final state, at the JAX package's sweep
                shapes and at the full-width (2, 2048, 24, 64, 128, 256) on
                the column views the model passes, from a zero and a random
-               initial state, in fp32 (atol 1e-4, rtol 1e-3) and bf16 (2e-2);
+               initial state, in fp32 (the CUDA-core loop; atol 1e-4, rtol
+               1e-3) and bf16 (the chunk-parallel tensor-core passes; 2e-2),
+               each case's worst error printed as a share of its allowance,
+               and the sha256 of the fp32 route's outputs over its cases (equal
+               across two trees means bit-identical outputs);
                once against the sequential recurrence in fp32;
 7. ssm       — full-width mamba2-130m in bf16 (random weights from seed 0):
                ``LM.prefill`` of 8 prompts x 2048 tokens (K7 must launch 24
@@ -67,7 +71,11 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                boolean mask (a yardstick only: the port never calls it), and
                the bound, each kernel's share of its bound and its ratio to
                the yardstick; K7 at (8, 2048) and (1, 32768) in bf16 beside its
-               plain version and its bound (no PyTorch call computes the SSD);
+               plain version and its bound (no PyTorch call computes the SSD),
+               with its device kernels per call and their times under
+               ``torch.profiler`` (a bf16 call must launch four), its bound share
+               and its scratch bytes (peak allocated during one call, less y
+               and the final state);
 9. kernels   — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
@@ -80,6 +88,7 @@ hashes tuples, so the training shapes are the same in every run.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import pathlib
@@ -129,6 +138,7 @@ SSD_SWEEP = ((1, 64, 1, 8, 16, 16), (2, 128, 3, 8, 16, 32), (1, 256, 2, 16, 32, 
 SSD_FULL = (2, 2048, 24, 64, 128, 256)
 SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-3), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 SSD_TIMES = ((8, 2048), (1, 32768))  # (B, S) at full width, bf16
+SSD_BF16_KERNELS = 4  # device kernels of one bf16 K7 call: scores, chunk states, state pass, outputs
 SSM_ROWS, SSM_PROMPT, SSM_DECODE = 8, 2048, 32  # the ssm phase's prefill and decode
 SSM_RAIL = (2, 512, 384)  # fp32 rail: rows, tokens, prefill length before teacher forcing
 
@@ -191,10 +201,10 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
     # The bf16 forward (K1/K4), dQ (K2/K5) and dK/dV (K3/K6) kernels, dense
-    # and pruned.
+    # and pruned, and K7's scores, chunk-state and output passes.
     spills = {fn: n for log in build.BUILD_LOGS.values()
               for fn, n in build.ptxas_spills(log).items() if "_tc_kernel" in fn}
-    check(len(spills) == 6 and not any(spills.values()),
+    check(len(spills) == 9 and sum("ssd_" in fn for fn in spills) == 3 and not any(spills.values()),
           f"the tensor-core kernels must not spill: {spills}")
     print(f"[build] {len(spills)} tensor-core kernels, 0 spill bytes")
 
@@ -787,6 +797,12 @@ def ssd_case(rng, b, s, h, p, n, dtype, strided, decay=1.0):
     return (x, (a[None, None, :] * dt).contiguous(), dt, bp, cp), init, a
 
 
+def allowance_share(ours, ref, tol: dict) -> float:
+    """The worst |ours - ref| as a share of what allclose allows there."""
+    ours, ref = ours.float(), ref.float()
+    return ((ours - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())).max().item()
+
+
 def phase_ssd(rng) -> float:
     """K7 against its plain chunked version (y and final state) and, once,
     against the sequential recurrence; returns the largest bf16 error."""
@@ -795,7 +811,7 @@ def phase_ssd(rng) -> float:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_ref
 
-    max_err = 0.0
+    max_err, fp32_digest, fp32_cases = 0.0, hashlib.sha256(), 0
     cases = [(shape, dname, dtype, decay) for shape in SSD_SWEEP + (SSD_FULL,) for decay in (1.0, 0.02)
              for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16))]
     for shape, dname, dtype, decay in cases:
@@ -813,12 +829,20 @@ def phase_ssd(rng) -> float:
                   f"y err {err}, state err {serr}")
             if dname == "bfloat16":
                 max_err = max(max_err, err)
+            else:
+                fp32_digest.update(y.cpu().numpy().tobytes())
+                fp32_digest.update(final.cpu().numpy().tobytes())
+                fp32_cases += 1
             print(f"[ssd] ssd_scan {shape} {dname} decay {decay} "
                   f"init={'random' if initial is not None else 'zero'}"
                   f"{' strided' if shape == SSD_FULL else ''}: max_abs_err y {err:.3g} "
-                  f"(max |y| {ry.float().abs().max().item():.3g}) state {serr:.3g} "
-                  f"(max |state| {rfinal.abs().max().item():.3g}) "
+                  f"(max |y| {ry.float().abs().max().item():.3g}; "
+                  f"{allowance_share(y, ry, tol):.3f} of the allowance) state {serr:.3g} "
+                  f"(max |state| {rfinal.abs().max().item():.3g}; "
+                  f"{allowance_share(final, rfinal, tol):.3f}) "
                   f"(atol {tol['atol']}, rtol {tol['rtol']})")
+    print(f"[ssd] fp32 route: sha256 of y and the final state over its {fp32_cases} cases "
+          f"{fp32_digest.hexdigest()}")
     b, s, h, p, n, chunk = SSD_FULL
     (x, adt, dt, bp, cp), init, a = ssd_case(rng, b, s, h, p, n, torch.float32, strided=True, decay=0.02)
     y, final = ssd.ssd_scan(x, adt, dt, bp, cp, chunk=chunk, initial_state=init, return_final_state=True)
@@ -956,11 +980,41 @@ def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     return flops, nbytes
 
 
+def ssd_device_launches(call, calls: int = 10) -> tuple:
+    """The device launches behind K7 calls under ``torch.profiler``, after
+    two warm-up calls under the same profiler that it does not record: the
+    kernel launches per call, counted on the host (``cudaLaunchKernel``,
+    which the profiler records every time), and by kernel name (launches
+    recorded on the device per call, mean ms per launch).  The device side
+    can miss a whole call's events now and then, so it names the kernels
+    and times them but does not count them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warmup = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=calls, repeat=1)) as prof:
+        for _ in range(warmup + calls):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    host_launches, by_name = 0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not e.name.startswith("ProfilerStep"):  # the step's own annotation
+                n, ms = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        elif e.name.startswith("cudaLaunchKernel"):
+            host_launches += 1
+    return host_launches / calls, {name: (n / calls, ms / n) for name, (n, ms) in by_name.items()}
+
+
 def phase_times_ssd(rng) -> list:
     """K7 and its plain version at the [ssm] prefill's shape (8, 2048) and at
     one long sequence, as the prefill calls it (strided views, no initial
     state, final state out): y and the final state held against each other
-    at the bf16 tolerance, then each timed."""
+    at the bf16 tolerance, the device launches of one call counted under the
+    profiler, then each timed."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -978,20 +1032,44 @@ def phase_times_ssd(rng) -> list:
         check(torch.allclose(y.float(), ry.float(), **tol) and torch.allclose(final, rfinal, **tol),
               f"ssd_scan vs plain at ({b}, {s}) bf16 strided: y err {err}, state err {serr}")
         print(f"[ssd] ssd_scan ({b}, {s}, 24, 64, 128, 256) bfloat16 decay 1.0 init=zero strided: "
-              f"max_abs_err y {err:.3g} (max |y| {ry.float().abs().max().item():.3g}) state {serr:.3g} "
-              f"(max |state| {rfinal.abs().max().item():.3g}) (atol {tol['atol']}, rtol {tol['rtol']})")
+              f"max_abs_err y {err:.3g} (max |y| {ry.float().abs().max().item():.3g}; "
+              f"{allowance_share(y, ry, tol):.3f} of the allowance) state {serr:.3g} "
+              f"(max |state| {rfinal.abs().max().item():.3g}; {allowance_share(final, rfinal, tol):.3f}) "
+              f"(atol {tol['atol']}, rtol {tol['rtol']})")
         del y, final, ry, rfinal
-        t_k = cuda_ms(lambda: ssd.ssd_scan(*args, chunk=256, return_final_state=True), iters=5, warmup=1)
+        call = lambda: ssd.ssd_scan(*args, chunk=256, return_final_state=True)  # noqa: E731
+        per_call, kernels = ssd_device_launches(call)
+        check(per_call == SSD_BF16_KERNELS and len(kernels) == SSD_BF16_KERNELS,
+              f"a bf16 K7 call must launch {SSD_BF16_KERNELS} device kernels: the profiler "
+              f"counted {per_call} launches per call, of the kernels {sorted(kernels)}")
+        for kname, (n, ms) in kernels.items():
+            print(f"[times] ssd_scan B={b} S={s}: device kernel {kname.split('(')[0]} "
+                  f"{ms:.4f} ms per launch ({n:g} launches recorded on the device per call; profiled)")
+        # The wrapper's scratch: the peak allocated during one call, less
+        # what the call returns.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y, final = call()
+        torch.cuda.synchronize()
+        scratch = (torch.cuda.max_memory_allocated() - base - y.untyped_storage().nbytes()
+                   - final.untyped_storage().nbytes())
+        del y, final
+        t_k = cuda_ms(call, iters=5, warmup=1)
         t_plain = cuda_ms(lambda: ssd_chunked_ref(*args, 256), iters=3, warmup=1)
         flops, nbytes = ssd_work(b, s)
         bound_by = "operations" if flops / PEAK_FLOPS > nbytes / PEAK_BYTES else "bytes"
         bound_ms = 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
         rows.append(dict(shape=[b, s, 24, 64, 128, 256], ms=t_k, plain_ms=t_plain, bound_ms=bound_ms,
-                         bound_by=bound_by, flops=flops, bytes=nbytes, max_abs_err=err))
+                         bound_by=bound_by, flops=flops, bytes=nbytes, max_abs_err=err,
+                         device_launches=per_call))
         print(f"[times] ssd_scan B={b} S={s} H=24 P=64 N=128 chunk=256 bf16: kernel_ms {t_k:.4f} "
               f"plain_ms {t_plain:.4f} library_ms none (no PyTorch call computes the SSD) bound_ms "
               f"{bound_ms:.5f} ({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
-              f"achieved {flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e9:.3f} TB/s")
+              f"achieved {flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e9:.3f} TB/s, bound share "
+              f"{bound_ms / t_k:.4f}; device launches per call {per_call:g}; scratch "
+              f"{scratch} bytes (peak allocated during one call less y and the final state: "
+              f"chunk states, decays, scores; not in the bound)")
         del args
     torch.cuda.empty_cache()
     return rows
@@ -1055,6 +1133,7 @@ def main() -> None:
                       f"{SSM_DECODE} decode steps launch none",
         long_shape=long_shape["shape"], long_ms=long_shape["ms"], long_plain_ms=long_shape["plain_ms"],
         long_bound_ms=long_shape["bound_ms"], long_bound_by=long_shape["bound_by"],
+        device_launches_per_call=main_shape["device_launches"],
     ))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -55,8 +55,9 @@ SIGNATURES = {
     },
     "ssd_scan": {
         # (dtype, device, x, adt, dt, b, c, init_state, y, final_state,
+        #  states, decay, scores (the bf16 route's scratch),
         #  B, S, H, P, N, chunk, x/b/c batch and row strides, stream)
-        "ssd_scan_fwd": ([_c_int, _c_int] + [_ptr] * 8 + [_c_int] * 12 + [_ptr], _c_int),
+        "ssd_scan_fwd": ([_c_int, _c_int] + [_ptr] * 11 + [_c_int] * 12 + [_ptr], _c_int),
         "ssd_error_string": ([_c_int], ctypes.c_char_p),
     },
 }

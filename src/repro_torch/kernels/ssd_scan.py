@@ -2,16 +2,23 @@
 
 :func:`ssd_scan` replaces the TPU ``repro.kernels.ssd_scan.ssd_scan``: the
 SSD of pre-projected inputs, chunk by chunk, with an fp32 ``(P × N)`` state
-carried across chunks (``csrc/ssd_scan.cu``, one thread block per
-``(b, h)``).  Beside the TPU kernel's zero-state output it takes an optional
-fp32 initial state and returns the fp32 final state when asked: the two ends
-of the state the kernel carries anyway, which the model's prefill needs.
+carried across chunks (``csrc/ssd_scan.cu``).  Beside the TPU kernel's
+zero-state output it takes an optional fp32 initial state and returns the
+fp32 final state when asked: the two ends of the carried state, which the
+model's prefill needs.
 
 Given CUDA tensors it launches the kernel or raises; given CPU tensors it
 computes the plain version (``kernels/ref.ssd_chunked_ref``).  The kernel is
 forward only: on a CUDA tensor with grad mode on and an input that requires
-grad it raises, since the SSD backward is not ported.  Each launch adds one
-to :data:`LAUNCHES`.
+grad it raises, since the SSD backward is not ported.  Each call that launches
+adds one to :data:`LAUNCHES`, whatever the number of device launches behind
+it (one on the fp32 route, four on the bf16 route).
+
+Two routes, by dtype.  fp32 runs the CUDA-core kernel, one block per
+``(b, h)`` walking the chunks in order: the exact rail.  bf16 runs the
+chunk-parallel tensor-core passes (scores C·Bᵀ once per chunk, chunk states,
+the state passing over chunks, outputs); the wrapper allocates their fp32
+scratch (:func:`_scratch_shapes`).
 
 x, B and C may be views with a contiguous last dimension (x also contiguous
 over heads) and any batch and row strides: the model passes the column
@@ -26,11 +33,13 @@ import torch
 
 from repro_torch.kernels.ref import ssd_chunked_ref
 
-# Kernel launches since the last reset_launches().
+# Calls that launched K7 since the last reset_launches().
 LAUNCHES = {"ssd_scan": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADDIM, MAX_STATE, MAX_CHUNK = 64, 128, 1024  # the kernel's shared-memory tiles
+
+_TILE = 64  # rows of the bf16 route's tiles: the score scratch is padded to it
 
 __all__ = ["LAUNCHES", "reset_launches", "ssd_scan"]
 
@@ -88,6 +97,15 @@ def _check_cuda(x, adt, dt, b_p, c_p, chunk, initial_state) -> None:
         )
 
 
+def _scratch_shapes(bsz: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
+    """The fp32 scratch of the bf16 route: the chunk states, written over by
+    the state entering each chunk (B, nc, H, P, N); each chunk's decay
+    exp(acs_last) (B, nc, H); and the scores C·Bᵀ of each chunk
+    (B, nc, Qp, Qp), Qp = chunk rounded up to 64."""
+    nc, qp = s // chunk, -(-chunk // _TILE) * _TILE
+    return {"states": (bsz, nc, h, p, n), "decay": (bsz, nc, h), "scores": (bsz, nc, qp, qp)}
+
+
 def _ptr(t: torch.Tensor | None):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
@@ -123,11 +141,16 @@ def ssd_scan(
         torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
         if return_final_state else None
     )
+    scratch = dict.fromkeys(("states", "decay", "scores"))
+    if x.dtype == torch.bfloat16:
+        scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
+                   for name, shape in _scratch_shapes(bsz, s, h, p, n, chunk).items()}
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     rc = lib.ssd_scan_fwd(
         _DTYPES[x.dtype], x.device.index or 0,
         _ptr(x), _ptr(adt), _ptr(dt), _ptr(b_p), _ptr(c_p), _ptr(initial_state), _ptr(y),
-        _ptr(final), bsz, s, h, p, n, chunk,
+        _ptr(final), _ptr(scratch["states"]), _ptr(scratch["decay"]), _ptr(scratch["scores"]),
+        bsz, s, h, p, n, chunk,
         x.stride(0), x.stride(1), b_p.stride(0), b_p.stride(1), c_p.stride(0), c_p.stride(1),
         stream,
     )

@@ -288,12 +288,24 @@ def _ssd_inputs(seed, b, s, h, p, n, dtype, strided=False, decay=1.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("decay", [1.0, 0.02])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 96, 4, 8, 8, 32, False), (1, 256, 2, 16, 32, 64, True),
-                                   (2, 512, 24, 64, 128, 256, True)])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 1, 8, 16, 16, False),  # the JAX sweep's ragged shapes: chunk 16, N 8
+    (2, 96, 4, 8, 8, 32, False),
+    (1, 256, 2, 16, 32, 64, True),
+    (2, 96, 3, 12, 8, 32, True),  # rows not 16-byte aligned: plain loads
+    (1, 320, 2, 16, 32, 160, True),  # a chunk of 64 + 64 + 32 rows: a ring stage reused
+    (2, 64, 3, 5, 12, 32, True),  # odd P: plain loads of x, scalar stores of y
+    (1, 48, 2, 6, 7, 24, False),  # odd N, P*N % 4 != 0, a chunk that is no multiple of 16
+    (1, 2048, 2, 64, 128, 1024, True),  # the largest chunk: the most shared memory
+    (2, 512, 24, 64, 128, 256, True),
+    (1, 4096, 24, 64, 128, 256, True),  # the state passed over 16 chunks
+])
 def test_ssd_kernel_vs_plain(dtype, shape, decay):
     """K7 against its plain chunked version: y and the final state, from a
     zero and from a random initial state, on contiguous and strided inputs,
-    with fast and slow decay."""
+    with fast and slow decay.  bf16 runs the chunk-parallel tensor-core
+    passes, fp32 the CUDA-core kernel, which gives the same bits on a second
+    call (no atomics: its sums run in one fixed order)."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     *dims, strided = shape
@@ -309,6 +321,10 @@ def test_ssd_kernel_vs_plain(dtype, shape, decay):
         assert y.dtype == dtype and final.dtype == torch.float32
         torch.testing.assert_close(y.float(), ry.float(), **SSD_TOL[dtype])
         torch.testing.assert_close(final, rfinal, **SSD_TOL[dtype])
+        if dtype == torch.float32:
+            y2, final2 = ssd.ssd_scan(x, adt, dt, bp, cp, chunk=chunk, initial_state=initial,
+                                      return_final_state=True)
+            assert torch.equal(y, y2) and torch.equal(final, final2)
 
 
 @pytest.mark.cuda

@@ -146,6 +146,100 @@ def test_ssd_wrapper_rejects_what_it_cannot_take():
         ssd.ssd_scan(x, adt, dt, bp, cp, chunk=16, initial_state=torch.zeros(1, 2, 8, 8))
 
 
+def _bf16_terms(v: torch.Tensor, terms: int) -> torch.Tensor:
+    """v as the kernel hands it to an MMA: one bf16 term, or two (hi =
+    rn(v), lo = rn(v − hi)) summed in fp32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float() if terms == 2 else hi
+
+
+def _ssd_bf16_model(x, adt, dt, bp, cp, chunk, init=None, x_terms=2, state_terms=2, w_terms=2):
+    """The SSD as the bf16 tensor-core passes of K7 round it, in fp32 from
+    the bf16 inputs: (1) per chunk S_c = Σ_j xs_jᵀ B_j with the scaled
+    inputs xs_j = x_j·(exp(acs_last − acs_j)·dt_j) in ``x_terms`` bf16
+    terms; (2) s_enter(c+1) = exp(acs_last(c))·s_enter(c) + S_c in fp32;
+    (3) y_i = exp(acs_i)·(C_i·s_enter) + Σ_{j≤i} W_ij x_j with s_enter in
+    ``state_terms`` and W_ij = exp(acs_i − acs_j)·(C_i·B_j)·dt_j (selected
+    to 0 for j > i) in ``w_terms`` bf16 terms.  Returns (y in bf16, the
+    fp32 final state)."""
+    b, s, h, p = x.shape
+    n, nc = bp.shape[-1], s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    bf, cf = bp.float().reshape(b, nc, chunk, n), cp.float().reshape(b, nc, chunk, n)
+    acs = torch.cumsum(adt.float().reshape(b, nc, chunk, h), dim=2)
+    xs = _bf16_terms(xf * (torch.exp(acs[:, :, -1:] - acs) * dtf)[..., None], x_terms)
+    s_c = torch.einsum("bcqhp,bcqn->bchpn", xs, bf)
+    state = init.float() if init is not None else torch.zeros(b, h, p, n)
+    s_enter = []
+    for c in range(nc):
+        s_enter.append(state)
+        state = torch.exp(acs[:, c, -1])[..., None, None] * state + s_c[:, c]
+    scores = torch.einsum("bcin,bcjn->bcij", cf, bf)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    ah = acs.permute(0, 1, 3, 2)  # (B, nc, H, Q)
+    decay = torch.where(tri, torch.exp(ah[..., :, None] - ah[..., None, :]), 0.0)
+    w = _bf16_terms(decay * scores[:, :, None] * dtf.permute(0, 1, 3, 2)[..., None, :], w_terms)
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", w, xf)
+    y_off = torch.einsum("bcin,bchpn->bcihp", cf, _bf16_terms(torch.stack(s_enter, 1), state_terms))
+    y = y_diag + y_off * torch.exp(acs)[..., None]
+    return y.reshape(b, s, h, p).to(torch.bfloat16), state
+
+
+def _allowance_share(ours: np.ndarray, ref: np.ndarray, tol=BF16_TOL) -> float:
+    """The worst |ours − ref| as a share of what allclose allows there."""
+    ref = np.asarray(ref, np.float32)
+    return float((np.abs(ours - ref) / (tol["atol"] + tol["rtol"] * np.abs(ref))).max())
+
+
+MAMBA2_WIDTH = (1, 512, 4, 64, 128, 256)  # mamba2-130m's P, N and chunk, four heads
+
+
+def _ssd_model_shares(shape, decay, **terms):
+    """The bf16 model's worst shares of the bf16 allowance: y against the
+    JAX Pallas kernel (interpret mode, zero state), and y and the final state
+    against the JAX ``ssd_chunked`` from a random initial state."""
+    b, s, h, p, n, chunk = shape
+    x, dt, a, bp, cp = _ssd_inputs(0, b, s, h, p, n, ml_dtypes.bfloat16, decay=decay)
+    adt = (a[None, None, :] * dt).astype(np.float32)
+    init = (np.random.default_rng(2).standard_normal((b, h, p, n)) * 0.5).astype(np.float32)
+    jy = jax_ssd_scan(*(jnp.asarray(v) for v in (x, adt, dt, bp, cp)), chunk=chunk, interpret=True)
+    ky, kfinal = jax_ssm.ssd_chunked(*(jnp.asarray(v) for v in (x, dt, a, bp, cp)), chunk,
+                                     jnp.asarray(init))
+    args = (_t(x), _t(adt), _t(dt), _t(bp), _t(cp), chunk)
+    y0, _ = _ssd_bf16_model(*args, **terms)
+    y1, final = _ssd_bf16_model(*args, _t(init), **terms)
+    assert y0.dtype == torch.bfloat16 and final.dtype == torch.float32
+    return {"y zero state": _allowance_share(_np(y0), jy),
+            "y random state": _allowance_share(_np(y1), ky),
+            "final state": _allowance_share(_np(final), kfinal)}
+
+
+class TestBf16SsdRounding:
+    """K7's bf16 route multiplies on the tensor cores three operands that the
+    JAX kernel keeps in fp32: the scaled inputs of the chunk states, the
+    state entering a chunk, and the weights W.  Each goes in as two bf16
+    terms (hi + lo).  This model of that rounding stays within the bf16
+    tolerance of the JAX SSD at both decays, with half the allowance to
+    spare; with any one of the three as a single bf16 term it leaves the
+    tolerance at mamba2's widths with slow decay."""
+
+    @pytest.mark.parametrize("decay", [1.0, 0.02])
+    @pytest.mark.parametrize("shape", [(2, 128, 3, 8, 16, 32), (2, 96, 4, 8, 8, 32), MAMBA2_WIDTH],
+                             ids=["2x128", "2x96-n8", "mamba2-width"])
+    def test_rounding_model_vs_jax(self, shape, decay):
+        shares = _ssd_model_shares(shape, decay)
+        assert max(shares.values()) < 0.5, shares
+
+    @pytest.mark.parametrize("single", ["x_terms", "state_terms", "w_terms"])
+    def test_one_bf16_term_misses_the_tolerance(self, single):
+        """Why each operand is split: one bf16 term of it, the other two
+        split, leaves the tolerance on the mamba2-width case with decay
+        0.02 (|y| up to ~35, |state| up to ~6)."""
+        shares = _ssd_model_shares(MAMBA2_WIDTH, 0.02, **{single: 1})
+        assert max(shares.values()) > 1.0, shares
+
+
 # ---------------------------------------------------------------------------
 # Block and model
 # ---------------------------------------------------------------------------
