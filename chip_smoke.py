@@ -40,14 +40,25 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                route are held against the plain route's; ``torch.profiler``
                reads the card's busy share over the first eight ticks;
 5. training  — ``Trainer`` on full-width Qwen3-0.6B in bf16 (random weights
-               from seed 0) through the train launcher's data path
-               (``--layout packed --world 2 --l-max 4096``, TRAIN_STEPS steps):
-               finite loss and grad_norm every step, per step K4 launched
-               2 x 28 times (remat recomputes the forward), K5 and K6 28 times,
-               K1-K3 never; the same steps on ``attn_grid="dense"`` launch K1
-               2 x 28, K2 and K3 28 times per step, K4-K6 never, and give the
-               same per-step losses within LOSS_RTOL; tokens/s, step time and
-               peak memory, and ``torch.profiler``'s busy share over two steps;
+               from seed 0) through the train launcher
+               (``--layout packed --world 2 --l-max 4096``, TRAIN_STEPS steps)
+               on three data paths of the pruned route: the launcher's
+               default (the streaming executor with a prefetch thread),
+               ``--eager``, and ``--num-workers 2 --device-put`` (two worker
+               processes, the step arrays staged on the card from the
+               producer on a CUDA stream of its own): finite loss and
+               grad_norm every step, per step K4 launched 2 x 28 times
+               (remat recomputes the forward), K5 and K6 28 times, K1-K3
+               never; the sha256 of each step's host arrays equal across the
+               paths and the per-step losses within LOSS_RTOL; the same steps
+               on ``attn_grid="dense"`` launch K1 2 x 28, K2 and K3 28 times
+               per step, K4-K6 never, with the same digests and losses; per
+               run tokens/s (and over steps 2..4, which leave out the first
+               step's warm-up and the data path's drain after the last),
+               step time, per-step ``train/realize``, ``train/pad`` and
+               ``train/device_put`` seconds, the prefetch thread's hits,
+               misses and wait, the worker pool's counts, peak memory;
+               ``torch.profiler``'s busy share over two default-path steps;
 6. ssd       — the SSD chunk-scan kernel (K7) against its plain chunked
                version, y and the final state, at the JAX package's sweep
                shapes and at the full-width (2, 2048, 24, 64, 128, 256) on
@@ -111,10 +122,19 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TRAIN_STEPS = 4
 TRAIN_ARGS = ["--arch", "qwen3_0_6b", "--layout", "packed", "--world", "2", "--l-max", "4096",
               "--steps", str(TRAIN_STEPS), "--log-every", "1"]
-# Per-step losses of the dense and pruned routes: the kernels of the two
-# routes are bit-exact pairs, so only the order of atomic adds outside them
-# (the embedding gradient) differs; bf16 weights.
+# Per-step losses of the training runs (two routes, three data paths): the
+# kernels of the two routes are bit-exact pairs and the data paths deliver
+# the same arrays, so only the order of atomic adds outside the kernels (the
+# embedding gradient) differs; bf16 weights.
 LOSS_RTOL = 1e-2
+# The pruned route's training runs: name -> the train launcher's data-path
+# flags.  The first is the launcher's default and takes the profile.
+DATA_PATHS = {
+    "stream+prefetch": [],
+    "eager": ["--eager"],
+    "workers+device-put": ["--num-workers", "2", "--device-put"],
+}
+STEP_PHASES = ("train/realize", "train/pad", "train/device_put")
 FWD = "src/repro_torch/kernels/csrc/flash_fwd.cu"
 BWD = "src/repro_torch/kernels/csrc/flash_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention.py"
@@ -392,13 +412,17 @@ def profile_run(run, tag: str, unit: str) -> None:
         t = time.perf_counter()
         units = run()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # The profiler's raw events: the kernels and durations that
+    # ``prof.events()`` lists, without building its Python object for each
+    # of the ~10^5 host ops of a training step (which takes seconds).
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print(f"[{tag}] the profiler recorded no device events: device busy share not measured")
         return
     by_name: dict = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
     busy_ms = sum(by_name.values())
     print(f"[{tag}] profile: wall {wall_ms:.1f} ms, device kernel time {busy_ms:.1f} ms, busy share "
           f"{busy_ms / wall_ms:.3f}, {len(kernels)} kernels ({len(kernels) / units:.0f} per {unit} "
@@ -514,10 +538,48 @@ def phase_serving():
     }
 
 
-def train_run(grid: str, profile_steps: int = 0) -> dict:
+def step_digest(loader_step, layout) -> str:
+    """sha256 of one step's global host arrays: the pinned sources of the
+    copies when the loader staged the step on the card, else the arrays the
+    trainer assembles from the rank batches."""
+    import numpy as np
+
+    from repro_torch.core.layout import global_batch_arrays
+
+    if loader_step.device is not None:
+        arrays = {k: t.numpy() for k, t in loader_step.device.host.items()}
+    else:
+        arrays = global_batch_arrays(loader_step.batches, layout)
+    h = hashlib.sha256()
+    for key in sorted(arrays):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(arrays[key]).tobytes())
+    return h.hexdigest()
+
+
+def step_phases(events, hash_s: list) -> dict:
+    """Per-step seconds of the trainer's host phases from its spans; the
+    realize phase less the time ``step_digest`` took inside it."""
+    out = {name: [] for name in STEP_PHASES}
+    cur = dict.fromkeys(STEP_PHASES, 0.0)
+    for e in events:
+        if e["name"] in cur:
+            cur[e["name"]] += e["dur"] / 1e6
+        elif e["name"] == "train/step":
+            for name in STEP_PHASES:
+                out[name].append(cur[name])
+            cur = dict.fromkeys(STEP_PHASES, 0.0)
+    out["train/realize"] = [r - h for r, h in zip(out["train/realize"], hash_s)]
+    return out
+
+
+def train_run(grid: str, path: str = "stream+prefetch", profile_steps: int = 0) -> dict:
     """TRAIN_STEPS steps of the train launcher's trainer on ``--attn-grid
-    grid`` from seed-0 weights; the kernels' launches are counted from 0 just
-    before the run and read just after it."""
+    grid`` and the data path ``DATA_PATHS[path]`` from seed-0 weights; the
+    kernels' launches are counted from 0 just before the run and read just
+    after it.  Each delivered step's host arrays are digested as the step
+    leaves the data path, and the digests' time is taken out of the step
+    times and the wall clock."""
     import math
 
     import torch
@@ -527,15 +589,36 @@ def train_run(grid: str, profile_steps: int = 0) -> dict:
     from repro_torch.launch import train as train_launcher
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
+    tag = f"[train] grid={grid} path={path}"
+    t_run = time.perf_counter()
     trainer, loader = train_launcher.build(train_launcher.parser().parse_args(
-        TRAIN_ARGS + ["--attn-grid", grid]))
+        TRAIN_ARGS + ["--attn-grid", grid] + DATA_PATHS[path]))
     cfg = trainer.model.cfg
     t0 = time.perf_counter()
     state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    print(f"[train] {cfg.name} grid={grid}: {cfg.n_layers} layers d_model {cfg.d_model} "
+    print(f"{tag}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f}M params {cfg.dtype}, "
-          f"init {time.perf_counter() - t0:.1f}s")
+          f"build {t0 - t_run:.1f}s, init {time.perf_counter() - t0:.1f}s")
+    digests, hash_s = [], []
+
+    def digested(epoch_fn):
+        def steps(*args, **kwargs):
+            inner = epoch_fn(*args, **kwargs)
+            try:
+                for loader_step in inner:
+                    t = time.perf_counter()
+                    digests.append(step_digest(loader_step, loader.layout))
+                    hash_s.append(time.perf_counter() - t)
+                    yield loader_step
+            finally:
+                inner.close()
+        return steps
+
+    # The loader's two public epoch iterators, wrapped on this instance for
+    # the measured run only (the profile run below delivers undigested).
+    loader.epoch = digested(loader.epoch)
+    loader.streaming_epoch = digested(loader.streaming_epoch)
     reg, tracer = obs.default_registry(), obs.default_tracer()
     reg.reset()
     tracer.reset()
@@ -545,30 +628,45 @@ def train_run(grid: str, profile_steps: int = 0) -> dict:
     t0 = time.perf_counter()
     state, steps = trainer.train_epoch(state)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - sum(hash_s)
+    del loader.epoch, loader.streaming_epoch
     launches = dict(fa.LAUNCHES)
     tracer.disable()
-    step_s = [e["dur"] / 1e6 for e in tracer.events() if e["name"] == "train/step"]
+    events = tracer.events()
+    step_s = [e["dur"] / 1e6 - h for e, h in
+              zip([e for e in events if e["name"] == "train/step"], hash_s)]
+    phases = step_phases(events, hash_s)
     tokens = reg.flat()["train_tokens_total"]
     peak = torch.cuda.max_memory_allocated()
     check(steps == TRAIN_STEPS and len(trainer.history) == steps, f"{steps} steps run")
+    check(len(digests) == steps, f"{tag}: {len(digests)} steps digested")
     for rec in trainer.history:
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
-              f"step {rec['step']} on grid {grid}: loss {rec['loss']} grad_norm {rec['grad_norm']}")
-        print(f"[train] grid={grid} {Trainer.format_log_line(rec)}")
+              f"step {rec['step']} on {tag}: loss {rec['loss']} grad_norm {rec['grad_norm']}")
+        print(f"{tag} {Trainer.format_log_line(rec)}")
     n = cfg.n_layers * steps
     fwd, dq, dkv = (("segment_flash_attention_pruned", "segment_flash_attention_bwd_pruned_dq",
                      "segment_flash_attention_bwd_pruned_dkv") if grid == "pruned" else
                     ("segment_flash_attention", "segment_flash_attention_bwd_dq",
                      "segment_flash_attention_bwd_dkv"))
     want = {**dict.fromkeys(launches, 0), fwd: 2 * n, dq: n, dkv: n}
-    check(launches == want, f"grid {grid}: launches {launches} != {want}")
-    print(f"[train] grid={grid}: launches {launches} ({steps} steps x {cfg.n_layers} layers; "
+    check(launches == want, f"{tag}: launches {launches} != {want}")
+    print(f"{tag}: launches {launches} ({steps} steps x {cfg.n_layers} layers; "
           f"remat runs the forward twice)")
     loss_tokens = [rec["tokens"] for rec in trainer.history]
-    print(f"[train] grid={grid}: tokens/s {tokens / wall:.1f} ({tokens:.0f} real tokens in {wall:.3f}s), "
-          f"step s {[round(t, 3) for t in step_s]}, loss tokens/s over steps 2..{steps} "
-          f"{sum(loss_tokens[1:]) / sum(step_s[1:]):.1f}, max_memory_allocated {peak / 2**30:.3f} GiB")
+    tokens_2_4 = sum(loss_tokens[1:]) / sum(step_s[1:])
+    print(f"{tag}: tokens/s {tokens / wall:.1f} ({tokens:.0f} real tokens in {wall:.3f}s, the "
+          f"data path's drain included), step s {[round(t, 4) for t in step_s]}, loss tokens/s "
+          f"over steps 2..{steps} {tokens_2_4:.1f}, max_memory_allocated {peak / 2**30:.3f} GiB")
+    print(f"{tag}: host phases per step (s): " + ", ".join(
+        f"{name} {[round(x, 5) for x in phases[name]]}" for name in STEP_PHASES)
+        + f"; step_digest {[round(x, 5) for x in hash_s]} (taken out of realize, step s and tokens/s)")
+    prefetch = loader.last_prefetch_stats
+    if prefetch is not None:
+        print(f"{tag}: prefetch hits {prefetch.hits} misses {prefetch.misses} "
+              f"wait_s {prefetch.wait_s:.5f} produce_s {prefetch.produce_s:.5f}")
+    if loader.last_worker_stats is not None:
+        print(f"{tag}: workers {loader.last_worker_stats.as_dict()}")
     if profile_steps:
         more = Trainer(trainer.model, loader, trainer.opt_cfg,
                        TrainerConfig(log_every=profile_steps, max_steps=profile_steps))
@@ -579,25 +677,38 @@ def train_run(grid: str, profile_steps: int = 0) -> dict:
             return profile_steps
 
         profile_run(run, "train", "step")
+    print(f"{tag}: {time.perf_counter() - t_run:.1f}s in all")
     return dict(launches=launches, losses=[r["loss"] for r in trainer.history],
                 grad_norms=[r["grad_norm"] for r in trainer.history], step_s=step_s,
-                tokens_per_s=tokens / wall, peak_gib=peak / 2**30)
+                tokens_per_s=tokens / wall, tokens_per_s_2_4=tokens_2_4, peak_gib=peak / 2**30,
+                digests=digests, phases=phases)
 
 
 def phase_training() -> dict:
-    """Full-width training on the default (pruned) route, then on the dense
-    route from the same weights and data; returns the kernels' launches, each
-    from its own route's run."""
+    """Full-width training on the default (pruned) route over three data
+    paths, then on the dense route from the same weights and data; returns
+    the kernels' launches, each from its own route's default-path run."""
     import torch
 
-    pruned = train_run("pruned", profile_steps=2)
-    torch.cuda.empty_cache()
+    runs = {}
+    for i, path in enumerate(DATA_PATHS):
+        runs[path] = train_run("pruned", path, profile_steps=2 if i == 0 else 0)
+        torch.cuda.empty_cache()
+    pruned = runs["stream+prefetch"]
     dense = train_run("dense")
     torch.cuda.empty_cache()
-    for i, (a, b) in enumerate(zip(pruned["losses"], dense["losses"])):
-        check(abs(a - b) <= LOSS_RTOL * abs(b), f"step {i + 1}: loss {a} (pruned) vs {b} (dense)")
-    print(f"[train] dense vs pruned route per-step losses {pruned['losses']} vs {dense['losses']} "
-          f"(rtol {LOSS_RTOL}); grad_norm {pruned['grad_norms']} vs {dense['grad_norms']}")
+    for name, run in [*runs.items(), ("dense", dense)]:
+        check(run["digests"] == pruned["digests"],
+              f"{name}: step digests {run['digests']} != {pruned['digests']}")
+        for i, (a, b) in enumerate(zip(run["losses"], pruned["losses"])):
+            check(abs(a - b) <= LOSS_RTOL * abs(b),
+                  f"step {i + 1}: loss {a} ({name}) vs {b} (pruned, stream+prefetch)")
+    print(f"[train] every run's steps have the same host-array sha256 "
+          f"({[d[:12] for d in pruned['digests']]}); per-step losses (rtol {LOSS_RTOL}): "
+          + "; ".join(f"{name} {run['losses']}" for name, run in [*runs.items(), ("dense", dense)]))
+    print(f"[train] loss tokens/s over steps 2..{TRAIN_STEPS}: "
+          + ", ".join(f"{name} {run['tokens_per_s_2_4']:.1f}"
+                      for name, run in [*runs.items(), ("dense", dense)]))
     launches = {name: dense["launches"][name] for name in KERNELS if KERNELS[name][2] == "dense"}
     launches.update({name: pruned["launches"][name] for name in KERNELS if KERNELS[name][2] == "pruned"})
     return launches
@@ -1091,18 +1202,25 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # every reference here is full fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    name, count = phase_device()
-    phase_build()
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f"[phase] {phase.__name__} {time.perf_counter() - t:.1f}s")
+        return out
+
+    name, count = timed(phase_device)
+    timed(phase_build)
     train_seg = training_segments()
-    max_err = phase_parity(np.random.default_rng(0), train_seg)
-    max_err.update(phase_backward(np.random.default_rng(2), train_seg))
-    ssd_err = phase_ssd(np.random.default_rng(4))
-    serve_launches = phase_serving()
-    train_launches = phase_training()
-    ssm_launches = phase_ssm()
-    serve_times = phase_times(np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
-    times = phase_times_training(np.random.default_rng(3), train_seg)
-    ssd_times = phase_times_ssd(np.random.default_rng(6))
+    max_err = timed(phase_parity, np.random.default_rng(0), train_seg)
+    max_err.update(timed(phase_backward, np.random.default_rng(2), train_seg))
+    ssd_err = timed(phase_ssd, np.random.default_rng(4))
+    serve_launches = timed(phase_serving)
+    train_launches = timed(phase_training)
+    ssm_launches = timed(phase_ssm)
+    serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
+    times = timed(phase_times_training, np.random.default_rng(3), train_seg)
+    ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
     kernels = []
     for kname, (source, replaces, grid, _) in KERNELS.items():
         t = times[kname]
@@ -1111,7 +1229,8 @@ def main() -> None:
             launches=train_launches[kname], max_abs_err=max_err[kname],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=times["shape"], dtype="bfloat16",
-            launches_note=f"{TRAIN_STEPS} training steps on attn_grid={grid}",
+            launches_note=f"{TRAIN_STEPS} training steps on attn_grid={grid}, the train "
+                          "launcher's default data path (streaming with prefetch)",
         )
         if kname in serve_launches:
             entry.update(

@@ -1,24 +1,74 @@
-"""Host-side collective channel for the alignment protocol (the part of the
-JAX package's ``core/comm.py`` that ``core/protocol.py`` needs).
+"""Host-side collective channel for the alignment protocol (the JAX
+package's ``core/comm.py`` without its multi-process transport).
 
 ``LoopbackCollective`` is in-process and round-synchronous: every simulated
 rank deposits its payload for round ``k`` and the gathered list goes back to
 every rank.  It enforces and audits the **uniform all_gather invariant**
 (Lemma 3): every rank must call exactly once per round, otherwise the channel
 raises, so a deadlock of the real system surfaces as a hard error in tests.
-The multi-process transport and the fault-tolerant wrapper of the JAX
-package are not ported yet.
+
+``ResilientCollective`` wraps a transport with the fault-tolerance policy of
+DESIGN.md §15: a per-round delivery deadline, bounded retry with exponential
+backoff + deterministic jitter, and a typed, *recoverable* failure
+(:class:`RankTimeoutError`) that is distinct from the unrecoverable-by-design
+:class:`ProtocolDesyncError`.  The wrapper memoizes per-rank payloads so a
+retried round never re-runs the protocol's side-effecting payload closures —
+only the transport attempt repeats.
+
+The multi-process transport (one process per host, with its int64 wire
+codec) is not ported yet, and with it the JAX wrapper's rank-driven
+``all_gather`` path: the port's wrapper serves the engine-driven
+``gather_round`` only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import time
 from typing import Any, Callable, Sequence
+
+from repro_torch import obs
 
 
 class ProtocolDesyncError(RuntimeError):
     """A rank broke the uniform-call invariant (would deadlock on hardware)."""
+
+
+class RankTimeoutError(RuntimeError):
+    """A rank missed the per-round delivery deadline after bounded retries.
+
+    Recoverable by construction (unlike :class:`ProtocolDesyncError`, which
+    is a protocol *bug*): the failed gather never reached the audited
+    transport, so every rank still holds its pre-gather state and an
+    executor checkpoint taken afterwards resumes the identical round
+    (``StreamExecutor`` converts this into a resumable ``EpochAborted``).
+
+    ``failed_ranks`` carries EVERY rank that failed the final attempt (a
+    correlated fault — a downed host — takes out several at once), with
+    per-rank reasons in ``failures``; ``rank`` keeps the first for
+    backward-compatible callers.
+    """
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        rank: int | None = None,
+        round_index: int | None = None,
+        attempts: int = 0,
+        failed_ranks: Sequence[int] | None = None,
+        failures: Sequence[tuple[int, str]] | None = None,
+    ) -> None:
+        super().__init__(message)
+        self.rank = rank
+        self.round_index = round_index
+        self.attempts = attempts
+        if failed_ranks is None:
+            failed_ranks = [] if rank is None else [rank]
+        self.failed_ranks = list(failed_ranks)
+        self.failures = [tuple(f) for f in (failures or [])]
 
 
 @dataclasses.dataclass
@@ -95,3 +145,160 @@ class LoopbackCollective(Collective):
         raise NotImplementedError(
             "LoopbackCollective is engine-driven; use gather_round()"
         )
+
+
+def _unit_jitter(*parts: object) -> float:
+    """Deterministic uniform(0,1) from arbitrary parts (no wall-clock RNG)."""
+    h = hashlib.sha1("|".join(str(p) for p in parts).encode()).digest()
+    return int.from_bytes(h[:8], "big") / float(1 << 64)
+
+
+class ResilientCollective(Collective):
+    """Deadline + bounded-retry wrapper over another collective (§15).
+
+    Policy per gather: attempt delivery; a rank that misses ``deadline_s``
+    (or whose payload a fault injector drops) fails the attempt.  Up to
+    ``max_retries`` retries follow, spaced by exponential backoff with
+    deterministic jitter (``base · 2^(attempt-1) · U[0.5, 1.5)``, capped at
+    ``backoff_cap_s``; the jitter is a pure hash of (seed, round, attempt)
+    so fault runs replay bit-exactly).  When retries are exhausted the
+    gather raises :class:`RankTimeoutError` — the caller's rank state is
+    untouched because nothing reached the inner transport.
+
+    Wrapping ``LoopbackCollective`` (engine-driven ``gather_round``): the
+    per-rank payload closures run **once**, on the first attempt; retries
+    replay the memoized payloads, so protocol side effects (candidate-group
+    collection) never double-run and the inner collective's uniform-call
+    audit still sees exactly one call per rank per logical round.  Injected
+    faults are *simulated* against the deadline — chaos runs spend no wall
+    clock on the faults themselves, only on the (configurable) backoff.
+
+    ``injector`` is the chaos hook (the JAX package's ``repro.chaos.inject``
+    implements it; the port has no chaos module yet): called as
+    ``on_gather(round_index, attempt, rank, tag)`` and returns ``None``
+    (clean), ``"drop"`` (payload lost), or a float (simulated delivery
+    latency in seconds — a fault only if it exceeds the deadline).
+    """
+
+    def __init__(
+        self,
+        inner: Collective,
+        *,
+        deadline_s: float = 1.0,
+        max_retries: int = 2,
+        backoff_base_s: float = 0.05,
+        backoff_cap_s: float = 2.0,
+        injector: Any = None,
+        sleep_fn: Callable[[float], None] = time.sleep,
+        seed: int = 0,
+    ) -> None:
+        super().__init__(inner.world_size)
+        if deadline_s <= 0:
+            raise ValueError(f"deadline_s must be positive, got {deadline_s}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.inner = inner
+        self.deadline_s = deadline_s
+        self.max_retries = max_retries
+        self.backoff_base_s = backoff_base_s
+        self.backoff_cap_s = backoff_cap_s
+        self.injector = injector
+        self.sleep_fn = sleep_fn
+        self.seed = seed
+        self.stats = inner.stats  # one ChannelStats: the wrapper adds no rounds
+        self.retries = 0  # failed attempts that were retried
+        self.recovered = 0  # gathers that succeeded after >= 1 retry
+        self._round_counter = 0  # wrapper-local gather ordinal (primary tag)
+        self._m_retries = obs.counter(
+            "odb_fault_retries_total",
+            help="gather attempts retried after a deadline miss or drop",
+        )
+        self._m_recovered = obs.counter(
+            "odb_fault_recovered_total",
+            help="gathers that succeeded after at least one retry",
+        )
+
+    # -- retry policy ----------------------------------------------------------
+    def _backoff_delay(self, round_index: int, attempt: int) -> float:
+        base = min(
+            self.backoff_cap_s, self.backoff_base_s * (2 ** max(attempt - 1, 0))
+        )
+        jitter = 0.5 + _unit_jitter("backoff", self.seed, round_index, attempt)
+        return base * jitter
+
+    def _failed_ranks(
+        self, round_index: int, attempt: int, tag: str
+    ) -> list[tuple[int, str]]:
+        """Ranks whose delivery fails this attempt (injector-simulated)."""
+        if self.injector is None:
+            return []
+        failed: list[tuple[int, str]] = []
+        for rank in range(self.world_size):
+            fault = self.injector.on_gather(round_index, attempt, rank, tag)
+            if fault is None:
+                continue
+            if fault == "drop":
+                failed.append((rank, "payload dropped"))
+            else:
+                delay = float(fault)
+                if delay > self.deadline_s:
+                    failed.append(
+                        (rank, f"delivery {delay:.3f}s > deadline {self.deadline_s:.3f}s")
+                    )
+        return failed
+
+    def _retry_loop(self, round_index: int, tag: str, attempt_fn):
+        """Run ``attempt_fn(attempt) -> (ok, failures)`` under the policy."""
+        attempt = 0
+        failures: list[tuple[int, str]] = []
+        while True:
+            ok, failures = attempt_fn(attempt)
+            if ok:
+                if attempt > 0:
+                    self.recovered += 1
+                    self._m_recovered.inc()
+                return
+            self.retries += 1
+            self._m_retries.inc()
+            attempt += 1
+            if attempt > self.max_retries:
+                # Report EVERY failed rank, not just the first: the straggler
+                # census, stream_abort.json and the operator's restart
+                # decision all need the full casualty list of the round.
+                ranks = [r for r, _ in failures]
+                detail = (
+                    "; ".join(f"rank {r}: {why}" for r, why in failures)
+                    or "timeout"
+                )
+                raise RankTimeoutError(
+                    f"round {round_index} ({tag}): ranks "
+                    f"{ranks if ranks else '?'} failed delivery "
+                    f"after {attempt} attempts ({detail})",
+                    rank=ranks[0] if ranks else None,
+                    round_index=round_index,
+                    attempts=attempt,
+                    failed_ranks=ranks,
+                    failures=failures,
+                )
+            self.sleep_fn(self._backoff_delay(round_index, attempt))
+
+    # -- engine-driven path (Loopback) -------------------------------------------
+    def gather_round(
+        self, payload_fn: Callable[[int], Any], *, tag: str = "primary"
+    ) -> list[Any]:
+        round_index = self._round_counter
+        payloads: list[Any] | None = None
+
+        def attempt(n: int):
+            nonlocal payloads
+            if payloads is None:
+                # First attempt only: protocol payload closures may have side
+                # effects (candidate collection); retries reuse the memo.
+                payloads = [payload_fn(rank) for rank in range(self.world_size)]
+            return (not (failed := self._failed_ranks(round_index, n, tag)), failed)
+
+        self._retry_loop(round_index, tag, attempt)
+        if tag == "primary":
+            self._round_counter += 1
+        assert payloads is not None
+        return self.inner.gather_round(lambda r: payloads[r], tag=tag)

@@ -1,4 +1,4 @@
-"""Data substrate: sampler, online pipeline, datasets, the eager loader."""
+"""Data substrate: sampler, online pipeline, datasets, the loader."""
 
 from repro_torch.data.datasets import (
     DATASET_CLONES,

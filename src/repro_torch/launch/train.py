@@ -6,8 +6,11 @@
 Runs on the CUDA card; ``--device cpu`` (with ``--smoke`` for the reduced
 config) runs the same trainer on the CPU, where the flash route (an explicit
 ``--attn-impl flash``) takes the kernels' plain versions.  Weights are random,
-drawn from seed 0, as the JAX launcher's are.  The data path is the loader's
-eager epoch, which yields the JAX launcher's default streaming step sequence.
+drawn from seed 0, as the JAX launcher's are.  The data path is the JAX
+launcher's default: the streaming executor with a prefetch thread
+(``--no-prefetch`` runs it inline, ``--num-workers N`` moves layout building
+into N worker processes, ``--device-put`` stages the step arrays on the card
+from the producer); ``--eager`` takes the offline epoch instead.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def build(args) -> tuple[Trainer, OnlineDynamicLoader]:
         l_max=args.l_max, buffer_size=args.buffer,
         prefetch_factor=args.prefetch, num_workers=4,
         join_mode=not args.non_join,
+        max_quarantine=args.max_quarantine,
     )
     loader = OnlineDynamicLoader(
         dataset,
@@ -49,7 +53,12 @@ def build(args) -> tuple[Trainer, OnlineDynamicLoader]:
     trainer = Trainer(
         model, loader,
         OptimizerConfig(total_steps=max(args.steps, 100)),
-        TrainerConfig(log_every=args.log_every, max_steps=args.steps),
+        TrainerConfig(
+            log_every=args.log_every, max_steps=args.steps,
+            streaming=not args.eager, prefetch=not args.no_prefetch,
+            prefetch_depth=args.prefetch_depth, lookahead=args.lookahead,
+            device_put=args.device_put, num_workers=args.num_workers,
+        ),
     )
     return trainer, loader
 
@@ -66,6 +75,36 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--buffer", type=int, default=256)
     ap.add_argument("--prefetch", type=int, default=64)
     ap.add_argument("--non-join", action="store_true")
+    ap.add_argument(
+        "--max-quarantine", type=int, default=0,
+        help="per-epoch budget of samples whose online realization may fail "
+             "and be quarantined (accounted component X, DESIGN.md §15) "
+             "instead of crashing the epoch. Default 0 = strict",
+    )
+    ap.add_argument(
+        "--eager", action="store_true",
+        help="offline data path (full-epoch length realization) instead of "
+             "the default streaming executor",
+    )
+    ap.add_argument(
+        "--lookahead", type=int, default=None,
+        help="admission-window bound on realized lengths in flight "
+             "(default: full view multiset, reproducing the eager schedule)",
+    )
+    ap.add_argument("--no-prefetch", action="store_true")
+    ap.add_argument("--prefetch-depth", type=int, default=2)
+    ap.add_argument(
+        "--device-put", action="store_true",
+        help="stage the step arrays on the device from the prefetch producer "
+             "(pinned copies on a CUDA stream of its own) so H2D hides under "
+             "the train step",
+    )
+    ap.add_argument(
+        "--num-workers", type=int, default=0,
+        help="spawned realization worker processes staging steps through a "
+             "shared-memory ring (DESIGN.md §14); 0 = in-process path. The "
+             "delivered step stream is bit-identical either way",
+    )
     ap.add_argument(
         "--layout", default="dense", choices=("dense", "packed"),
         help="batch layout: dense bucket padding or packed segment streams",
@@ -104,6 +143,16 @@ def main() -> None:
     audit = loader.last_audit
     if audit:
         print(f"eta_identity={audit.eta_identity} eta_quota={audit.eta_quota}")
+    if loader.last_prefetch_stats is not None:
+        st = loader.last_prefetch_stats
+        print(f"prefetch hit_rate={st.hit_rate:.2f} waits={st.wait_s:.3f}s")
+    if loader.last_worker_stats is not None:
+        ws = loader.last_worker_stats
+        print(
+            f"workers completed={ws.completed} shm={ws.shm_results} "
+            f"inline={ws.inline_results} reexec={ws.reexecuted} "
+            f"failures={ws.worker_failures} wait={ws.wait_s:.3f}s"
+        )
 
 
 if __name__ == "__main__":

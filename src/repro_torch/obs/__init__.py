@@ -1,4 +1,4 @@
-"""Observability: metrics registry and span tracer (stdlib only).
+"""Observability: metrics registry, span tracer and round audit (stdlib only).
 
 Module-level conveniences operate on the process-wide defaults::
 
@@ -19,12 +19,14 @@ from repro_torch.obs.metrics import (
     DEFAULT_BUCKETS,
     NULL,
     Counter,
+    CrossProcessAggregator,
     Gauge,
     Histogram,
     MetricsRegistry,
     NullMetric,
     default_registry,
 )
+from repro_torch.obs.report import ROUND_DURATION_BUCKETS, RoundTimeline
 from repro_torch.obs.trace import NULL_SPAN, Span, SpanTracer, default_tracer
 
 __all__ = [
@@ -33,10 +35,12 @@ __all__ = [
     "NULL_SPAN",
     "ROUND_DURATION_BUCKETS",
     "Counter",
+    "CrossProcessAggregator",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
     "NullMetric",
+    "RoundTimeline",
     "Span",
     "SpanTracer",
     "counter",
@@ -47,14 +51,6 @@ __all__ = [
     "instant",
     "span",
 ]
-
-# Protocol rounds are pure-python bookkeeping: microseconds to low
-# milliseconds on CPU.  Seconds-scale bins catch pathological stalls.
-ROUND_DURATION_BUCKETS = (
-    1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
-    1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.5, 1.0,
-)
-
 
 def counter(name: str, help: str = "", unit: str = "", **labels):
     """Counter from the default registry (NULL sink when disabled)."""

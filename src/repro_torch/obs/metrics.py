@@ -1,13 +1,42 @@
-"""Dependency-free metrics registry (copy of the JAX package's, minus the
-checkpoint round-trip, the Prometheus exposition and the cross-process
-aggregator, which serving does not use yet).
+"""Dependency-free metrics registry (DESIGN.md §13.1).
 
 Three instrument kinds — :class:`Counter` (monotone), :class:`Gauge`
 (last-write), :class:`Histogram` (explicit buckets + sum/count) — organized
-into named families with optional labels.  A disabled registry hands every
-caller the one shared :data:`NULL` sink, so instrumented hot paths cost one
-attribute call; labeled families cap their child count, and past the cap new
-label sets get the NULL sink and ``obs_dropped_series_total`` counts the drop.
+into named *families* with optional labels, all owned by a
+:class:`MetricsRegistry`.  The registry is the single source of truth for
+every runtime quantity the repo reports: the admission window, the DGAP
+protocol, the batch-layout engine, the trainer step split, the serving
+engine and the kernels all write here, and the flat view and the
+checkpoint state are *views* of it (the JAX package's Prometheus text
+exposition waits for the port's scrape endpoint).
+
+Design constraints (the reason this is hand-rolled rather than a client
+library):
+
+  * **cheap when disabled** — a disabled registry hands every caller the one
+    shared :data:`NULL` sink whose methods are no-ops: no allocation, no
+    lock, no dict; instrumented hot paths (one counter ``inc`` per admitted
+    view, per protocol round, per tick) cost a single attribute call;
+  * **cheap when enabled** — instruments are plain-slot objects mutated
+    without locking on the hot path (CPython attribute stores are atomic;
+    cross-thread visibility is all these need).  Only family *creation* and
+    snapshotting take the registry lock;
+  * **checkpoint-serializable** — ``state()``/``load_state()`` round-trip
+    every instrument through plain JSON types, so stream checkpoints carry
+    continuous counters across preemption (stream/state.py);
+  * **bounded cardinality** — labeled families cap their child count
+    (``max_label_children``); past the cap, new label sets get the NULL sink
+    and ``obs_dropped_series_total`` counts the drop, so an accidental
+    per-request label in serving cannot grow registry memory without bound;
+  * **cross-process mergeable** — :class:`CrossProcessAggregator` folds
+    ``state()`` dumps shipped by other processes (prefetch workers,
+    multi-host windows) into this registry: counters and histograms merge by
+    *delta* against the last dump from the same source (so periodic
+    re-shipping never double-counts), gauges are last-write-by-timestamp.
+
+Metric names follow the Prometheus convention (``snake_case``, ``_total``
+suffix on counters, base units in the name); the stable catalog lives in
+DESIGN.md §13.
 """
 
 from __future__ import annotations
@@ -18,6 +47,7 @@ import threading
 __all__ = [
     "NULL",
     "Counter",
+    "CrossProcessAggregator",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
@@ -84,6 +114,9 @@ class Counter:
     def sample(self) -> dict:
         return {"value": self.value}
 
+    def load(self, state: dict) -> None:
+        self.value = float(state["value"])
+
 
 class Gauge:
     """Last-write-wins instantaneous value."""
@@ -106,13 +139,16 @@ class Gauge:
     def sample(self) -> dict:
         return {"value": self.value}
 
+    def load(self, state: dict) -> None:
+        self.value = float(state["value"])
+
 
 class Histogram:
     """Explicit-bucket histogram: per-bin counts plus running sum/count.
 
     ``counts[i]`` is the number of observations with
     ``bounds[i-1] < v <= bounds[i]`` (``counts[-1]`` is the +Inf overflow
-    bin); :meth:`cumulative` re-derives the Prometheus *cumulative*
+    bin); the checkpoint state/exposition re-derive the Prometheus *cumulative*
     ``le`` form from these.
     """
 
@@ -149,6 +185,19 @@ class Histogram:
             "sum": self.sum,
             "buckets": {le: n for le, n in self.cumulative()},
         }
+
+    def load(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.sum = float(state["sum"])
+        # Invert the serialized cumulative form back to per-bin counts.
+        cum = state["buckets"]
+        previous = 0
+        for i, bound in enumerate(self.bounds):
+            le = format_float(bound)
+            running = int(cum.get(le, previous))
+            self.counts[i] = running - previous
+            previous = running
+        self.counts[-1] = self.count - previous
 
 
 def format_float(v: float) -> str:
@@ -190,7 +239,7 @@ def _label_suffix(key: tuple[tuple[str, str], ...]) -> str:
 
 
 class MetricsRegistry:
-    """Named metric families with a flat ``name{labels} -> value`` view."""
+    """Named metric families; flat view, checkpoint state + Prometheus exposition."""
 
     def __init__(
         self,
@@ -198,7 +247,7 @@ class MetricsRegistry:
         max_label_children: int | None = DEFAULT_MAX_LABEL_CHILDREN,
     ) -> None:
         self.enabled = enabled
-        # Cardinality budget: per-family cap on *labeled*
+        # Cardinality budget (DESIGN.md §13): per-family cap on *labeled*
         # children; None = unbounded.  The unlabeled child is always allowed.
         self.max_label_children = max_label_children
         self._families: dict[str, MetricFamily] = {}
@@ -280,10 +329,157 @@ class MetricsRegistry:
                         out[f"{name}{suffix}"] = metric.value
         return out
 
+    # -- checkpoint round-trip (stream/state.py) -------------------------------
+    def state(self, prefix: str | tuple[str, ...] = "") -> dict:
+        """JSON-serializable dump of families whose name matches ``prefix``."""
+        with self._lock:
+            out = {}
+            for name, family in self._families.items():
+                if prefix and not name.startswith(prefix):
+                    continue
+                out[name] = {
+                    "type": family.kind,
+                    "help": family.help,
+                    "unit": family.unit,
+                    "buckets": list(family.buckets) if family.buckets else None,
+                    "children": [
+                        [list(map(list, key)), family.children[key].sample()]
+                        for key in sorted(family.children)
+                    ],
+                }
+            return out
+
+    def load_state(self, state: dict) -> None:
+        """Restore instruments dumped by :meth:`state` (resume path).
+
+        Existing same-name instruments are overwritten — a resumed run
+        *continues* the checkpointed counters rather than double-counting.
+        """
+        if not self.enabled or not state:
+            return
+        for name, fam_state in state.items():
+            buckets = fam_state.get("buckets") or DEFAULT_BUCKETS
+            for key_lists, sample in fam_state["children"]:
+                labels = {k: v for k, v in key_lists}
+                kind = fam_state["type"]
+                if kind == "histogram":
+                    metric = self.histogram(
+                        name, buckets=tuple(buckets),
+                        help=fam_state.get("help", ""),
+                        unit=fam_state.get("unit", ""), **labels,
+                    )
+                else:
+                    accessor = self.counter if kind == "counter" else self.gauge
+                    metric = accessor(
+                        name, help=fam_state.get("help", ""),
+                        unit=fam_state.get("unit", ""), **labels,
+                    )
+                metric.load(sample)
+
     def reset(self) -> None:
         """Drop every family (test isolation)."""
         with self._lock:
             self._families.clear()
+
+
+class CrossProcessAggregator:
+    """Merge ``MetricsRegistry.state()`` dumps from other processes.
+
+    Each producing process (a prefetch worker, a remote host's window) ships
+    its *cumulative* registry state periodically, tagged with a source id and
+    a wall-clock timestamp.  Merging is idempotent per dump and safe under
+    re-shipping:
+
+      * **counters** — the parent counter is incremented by the delta against
+        the previous dump from the same source; a value below the previous
+        one means the source restarted, so the full new value is the delta;
+      * **gauges** — last-write-by-timestamp across all sources (a stale
+        worker dump never overwrites a fresher one);
+      * **histograms** — per-bin count deltas (plus sum/count deltas) are
+        added onto the parent histogram with matching buckets.
+
+    Families whose kinds collide with an existing parent family are skipped
+    rather than raising: a misbehaving worker must not take down the trainer.
+    """
+
+    def __init__(self, registry: "MetricsRegistry | None" = None) -> None:
+        self.registry = registry
+        self._counter_last: dict[tuple, float] = {}
+        self._hist_last: dict[tuple, dict] = {}
+        self._gauge_ts: dict[tuple, float] = {}
+
+    def _target(self) -> "MetricsRegistry":
+        return self.registry or default_registry()
+
+    def merge(self, source: str, state: dict, timestamp: float) -> None:
+        registry = self._target()
+        if not registry.enabled or not state:
+            return
+        for name, fam_state in state.items():
+            kind = fam_state.get("type")
+            if kind not in _KINDS:
+                continue
+            buckets = fam_state.get("buckets")
+            for key_lists, sample in fam_state.get("children", []):
+                labels = {k: v for k, v in key_lists}
+                try:
+                    self._merge_child(
+                        registry, source, name, kind, buckets, labels,
+                        sample, timestamp,
+                        help=fam_state.get("help", ""),
+                        unit=fam_state.get("unit", ""),
+                    )
+                except ValueError:
+                    # Kind collision with a parent family: skip, don't raise.
+                    continue
+
+    def _merge_child(
+        self, registry, source, name, kind, buckets, labels, sample,
+        timestamp, *, help, unit,
+    ) -> None:
+        ident = (name, tuple(sorted(labels.items())))
+        if kind == "counter":
+            metric = registry.counter(name, help=help, unit=unit, **labels)
+            last = self._counter_last.get((source, *ident), 0.0)
+            value = float(sample["value"])
+            delta = value - last if value >= last else value  # restart
+            if delta > 0:
+                metric.inc(delta)
+            self._counter_last[(source, *ident)] = value
+        elif kind == "gauge":
+            if timestamp >= self._gauge_ts.get(ident, float("-inf")):
+                registry.gauge(name, help=help, unit=unit, **labels).set(
+                    sample["value"]
+                )
+                self._gauge_ts[ident] = timestamp
+        else:  # histogram
+            metric = registry.histogram(
+                name, buckets=tuple(buckets or DEFAULT_BUCKETS),
+                help=help, unit=unit, **labels,
+            )
+            if isinstance(metric, NullMetric):
+                return
+            last = self._hist_last.get(
+                (source, *ident), {"count": 0, "sum": 0.0, "buckets": {}}
+            )
+            if sample["count"] < last["count"]:  # source restarted
+                last = {"count": 0, "sum": 0.0, "buckets": {}}
+            # Invert both cumulative forms to per-bin counts, add the deltas.
+            previous_new = previous_old = 0
+            for i, bound in enumerate(metric.bounds):
+                le = format_float(bound)
+                running_new = int(sample["buckets"].get(le, previous_new))
+                running_old = int(last["buckets"].get(le, previous_old))
+                metric.counts[i] += (running_new - previous_new) - (
+                    running_old - previous_old
+                )
+                previous_new, previous_old = running_new, running_old
+            metric.counts[-1] += (sample["count"] - previous_new) - (
+                last["count"] - previous_old
+            )
+            metric.sum += sample["sum"] - last["sum"]
+            metric.count += sample["count"] - last["count"]
+            self._hist_last[(source, *ident)] = sample
 
 
 _DEFAULT = MetricsRegistry(enabled=True)

@@ -199,7 +199,7 @@ class ContinuousBatchingEngine:
     @property
     def done(self) -> bool:
         return (
-            self.window.exhausted()
+            self.window.exhausted(0)
             and not self.waiting
             and self.slots.active_count == 0
         )
@@ -294,7 +294,7 @@ class ContinuousBatchingEngine:
         # window's lookahead bounds realization no matter how greedy this is.
         want = 2 * self.config.num_slots - len(self.waiting)
         if want > 0:
-            self.waiting.extend(self.window.take(want))
+            self.waiting.extend(self.window.take(0, want))
         # Shed before any early return: under full-slot saturation (free==0,
         # the regime shedding exists for) expired waiters must still retire this
         # tick, or a saturated engine never drains its queue and the
@@ -448,7 +448,7 @@ class ContinuousBatchingEngine:
         self.stats.ticks += 1
         self._m_ticks.inc()
         self._m_occupancy.set(self.slots.active_count / self.config.num_slots)
-        self._m_queue_depth.set(len(self.waiting) + self.window.remaining())
+        self._m_queue_depth.set(len(self.waiting) + self.window.remaining(0))
         self.stats.peak_projected_tokens = max(
             self.stats.peak_projected_tokens, self.slots.projected_in_flight()
         )

@@ -113,7 +113,7 @@ class RequestWindow(BoundedWindow):
     """
 
     def __init__(self, *, lookahead: int) -> None:
-        super().__init__(lookahead)
+        super().__init__(1, lookahead)
         self._arrivals: list[Request] = []
         self._closed = False
 

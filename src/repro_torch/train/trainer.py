@@ -8,11 +8,13 @@ through autograd (the flash kernels' backward included), and an in-place
 AdamW update.  The global per-token mean is exactly the token-level scaled
 objective: IDLE ranks contribute zero tokens (Eq. 2 with t_r = 0).
 
-The data path is the loader's eager epoch, whose step sequence is the one
-the JAX package's streaming executor delivers at its default lookahead.
-Not ported yet: the streaming executor, prefetch, worker processes,
-checkpoints and the per-rank ``dp_shardmap_step``.  SSM training is not
-ported either: ``Trainer`` refuses SSM configs.
+The data path is the loader's streaming epoch by default (bounded
+admission window, prefetch thread, optional worker processes and staging of
+the step arrays on the card), as in the JAX package; ``streaming=False``
+takes the eager epoch, which delivers the same step sequence at the default
+lookahead.  Not ported yet: model checkpoints, the resume loop and the
+per-rank ``dp_shardmap_step``.  SSM training is not ported either:
+``Trainer`` refuses SSM configs.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.layout import BatchLayout, global_batch_arrays
-from repro_torch.data.loader import LoaderStep, OnlineDynamicLoader
+from repro_torch.data.loader import LoaderStep, OnlineDynamicLoader, StagedArrays
 from repro_torch.models.model import LM, shift_labels
 from repro_torch.train.optimizer import (
     OptimizerConfig,
@@ -42,6 +44,7 @@ __all__ = [
     "make_train_step",
     "resolve_attn_grid",
     "resolve_attn_impl",
+    "staged_arrays",
 ]
 
 
@@ -100,23 +103,45 @@ def _timed_phase(span_name: str, metric: str, help: str, fn: Callable):
     return out
 
 
+def staged_arrays(staged: StagedArrays, device) -> dict:
+    """The arrays the loader staged, made safe to read on ``device``'s
+    current stream: it waits on the copies' event, and each tensor is
+    recorded on it so the caching allocator does not hand the staging
+    stream's blocks out again while this step still reads them."""
+    device = torch.device(device)
+    arrays = staged.arrays
+    if any(t.device.type != device.type for t in arrays.values()):
+        raise ValueError(f"step arrays were staged on another device than {device}")
+    if staged.event is not None:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(staged.event)
+        for t in arrays.values():
+            t.record_stream(stream)
+    return arrays
+
+
 def assemble_model_batch(loader_step: LoaderStep, layout: BatchLayout, device) -> dict:
     """Turn one aligned LoaderStep into the step's batch dict on ``device``.
 
-    The packed layout threads positions/segments through to the model
-    (segment-aware attention masking + segment-aware label shift); the dense
-    layout keeps the lean three-array contract.
+    Uses the arrays staged by the loader (``device_put``) when present,
+    otherwise assembles from host numpy and copies.  The packed layout
+    threads positions/segments through to the model (segment-aware attention
+    masking + segment-aware label shift); the dense layout keeps the lean
+    three-array contract.
     """
-    host = _timed_phase(
-        "train/pad", "train_pad_seconds_total",
-        "host-side batch padding/assembly time",
-        lambda: global_batch_arrays(loader_step.batches, layout),
-    )
-    arrays = _timed_phase(
-        "train/device_put", "train_device_put_seconds_total",
-        "host-to-device transfer dispatch time",
-        lambda: {k: torch.from_numpy(v).to(device) for k, v in host.items()},
-    )
+    if loader_step.device is not None:
+        arrays = staged_arrays(loader_step.device, device)
+    else:
+        host = _timed_phase(
+            "train/pad", "train_pad_seconds_total",
+            "host-side batch padding/assembly time",
+            lambda: global_batch_arrays(loader_step.batches, layout),
+        )
+        arrays = _timed_phase(
+            "train/device_put", "train_device_put_seconds_total",
+            "host-to-device transfer dispatch time",
+            lambda: {k: torch.from_numpy(v).to(device) for k, v in host.items()},
+        )
     tokens = arrays["tokens"]
     if layout.needs_segments:
         segments = arrays["segments"]
@@ -136,6 +161,20 @@ def assemble_model_batch(loader_step: LoaderStep, layout: BatchLayout, device) -
 class TrainerConfig:
     log_every: int = 10
     max_steps: int | None = None
+    # Data path selection (DESIGN.md §9): the streaming executor admits views
+    # through a bounded-lookahead window and overlaps data-side work with the
+    # train step via a background prefetcher; eager is the offline reference.
+    streaming: bool = True
+    prefetch: bool = True
+    prefetch_depth: int = 2
+    lookahead: int | None = None
+    # Stage the step arrays on the model's device from the prefetch producer
+    # (pinned copies on a CUDA stream of its own), so H2D hides under the step.
+    device_put: bool = False
+    # Multi-process realization workers (DESIGN.md §14): 0 keeps layout
+    # realization in-process; > 0 spawns that many worker processes staging
+    # steps through a shared-memory ring (bit-identical step stream).
+    num_workers: int = 0
 
 
 class Trainer:
@@ -180,6 +219,22 @@ class Trainer:
         params = self.model.init(generator)
         return {"params": params, "opt": init_opt_state(params, self.opt_cfg)}
 
+    def _epoch_steps(self, epoch: int):
+        """Pick the data path: streaming (default, overlapped) or eager."""
+        if self.cfg.streaming:
+            return self.loader.streaming_epoch(
+                epoch,
+                lookahead=self.cfg.lookahead,
+                prefetch=self.cfg.prefetch,
+                prefetch_depth=self.cfg.prefetch_depth,
+                device_put=self.cfg.device_put,
+                num_workers=self.cfg.num_workers,
+                device=self.model.device,
+            )
+        return self.loader.epoch(
+            epoch, device_put=self.cfg.device_put, device=self.model.device
+        )
+
     def train_epoch(self, state: dict, epoch: int = 0, start_step: int = 0):
         if self._train_step is None:
             self._build_step()
@@ -195,49 +250,57 @@ class Trainer:
             help="wall time of one full train step (realize+pad+put+compute)",
             unit="seconds",
         )
-        step_iter = iter(self.loader.epoch(epoch))
-        while True:
-            step_t0 = time.perf_counter()
-            # Realize: pull the next aligned step out of the data path
-            # (admission + protocol rounds + layout).
-            loader_step = _timed_phase(
-                "train/realize", "train_realize_seconds_total",
-                "data-path time to the next aligned step",
-                lambda: next(step_iter, None),
-            )
-            if loader_step is None:
-                break
-            batch = assemble_model_batch(loader_step, self.loader.layout, self.model.device)
-
-            def _compute():
-                new_state, metrics = self._train_step(state, batch)
-                if tracer.enabled and self.model.device.type == "cuda":
-                    # Kernels run asynchronously: without a sync the span
-                    # would end at enqueue time.  Only sync when tracing.
-                    torch.cuda.synchronize(self.model.device)
-                return new_state, metrics
-
-            state, metrics = _timed_phase(
-                "train/compute", "train_compute_seconds_total",
-                "train_step time (dispatch; synced when tracing)",
-                _compute,
-            )
-            step_idx += 1
-            emitted += loader_step.metadata.emitted_samples
-            tokens_seen += loader_step.metadata.total_tokens
-            step_dt = time.perf_counter() - step_t0
-            m_steps.inc()
-            m_tokens.inc(loader_step.metadata.total_tokens)
-            m_step_dur.observe(step_dt)
-            tracer.complete("train/step", step_t0, step_dt, cat="train", step=step_idx)
-            if step_idx % self.cfg.log_every == 0:
-                dt = time.perf_counter() - t0
-                rec = self._publish_log_record(
-                    metrics, loader_step, step_idx, emitted, tokens_seen, dt
+        step_iter = self._epoch_steps(epoch)
+        try:
+            while True:
+                step_t0 = time.perf_counter()
+                # Realize: pull the next aligned step out of the data path
+                # (admission + protocol rounds + layout, or a prefetch dequeue).
+                loader_step = _timed_phase(
+                    "train/realize", "train_realize_seconds_total",
+                    "data-path time to the next aligned step",
+                    lambda: next(step_iter, None),
                 )
-                self.history.append(rec)
-            if self.cfg.max_steps and step_idx >= self.cfg.max_steps:
-                break
+                if loader_step is None:
+                    break
+                batch = assemble_model_batch(loader_step, self.loader.layout, self.model.device)
+
+                def _compute():
+                    new_state, metrics = self._train_step(state, batch)
+                    if tracer.enabled and self.model.device.type == "cuda":
+                        # Kernels run asynchronously: without a sync the span
+                        # would end at enqueue time.  Only sync when tracing.
+                        torch.cuda.synchronize(self.model.device)
+                    return new_state, metrics
+
+                state, metrics = _timed_phase(
+                    "train/compute", "train_compute_seconds_total",
+                    "train_step time (dispatch; synced when tracing)",
+                    _compute,
+                )
+                step_idx += 1
+                emitted += loader_step.metadata.emitted_samples
+                tokens_seen += loader_step.metadata.total_tokens
+                step_dt = time.perf_counter() - step_t0
+                m_steps.inc()
+                m_tokens.inc(loader_step.metadata.total_tokens)
+                m_step_dur.observe(step_dt)
+                tracer.complete("train/step", step_t0, step_dt, cat="train", step=step_idx)
+                if step_idx % self.cfg.log_every == 0:
+                    dt = time.perf_counter() - t0
+                    rec = self._publish_log_record(
+                        metrics, loader_step, step_idx, emitted, tokens_seen, dt
+                    )
+                    self.history.append(rec)
+                if self.cfg.max_steps and step_idx >= self.cfg.max_steps:
+                    break
+        finally:
+            # Stop the data path now, not at garbage collection: closing the
+            # generator joins the prefetch thread (which holds a CUDA stream),
+            # rolls back its staged tail, stops the workers and, after a
+            # max_steps break, drains the data-side schedule so ``last_audit``
+            # covers the whole epoch.
+            step_iter.close()
         return state, step_idx
 
     def _publish_log_record(

@@ -1,5 +1,6 @@
-"""Card-only checks of the port: the CUDA kernels, the engine, a train step
-and the SSM model's prefill and decode on the GPU.
+"""Card-only checks of the port: the CUDA kernels, the engine, a train step,
+the streaming data path's staging of step arrays on the card, and the SSM
+model's prefill and decode on the GPU.
 
 Every test here is marked ``cuda`` and skips itself where no CUDA device is
 present (the kernels have no CPU mode).  The file imports neither JAX nor the
@@ -32,7 +33,8 @@ from repro_torch.kernels.ref import (
 from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves
-from repro_torch.train.trainer import assemble_model_batch, make_train_step
+from repro_torch.core.layout import global_batch_arrays
+from repro_torch.train.trainer import assemble_model_batch, make_train_step, staged_arrays
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -257,6 +259,61 @@ def test_train_step_on_card_matches_cpu():
     np.testing.assert_allclose(g_card, g_cpu, rtol=1e-4)
     for a, b in zip(p_card, p_cpu):
         torch.testing.assert_close(a, b, atol=2 * lr, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_streaming_device_put_stages_on_card(num_workers):
+    """``streaming_epoch(prefetch=True, device_put=True, device="cuda")``
+    with a long kernel queued on the stager's own stream before each step's
+    copies, so the copies are still pending when a step reaches the
+    consumer: every step carries the event recorded after its copies and its pinned sources,
+    and after the consumer's wait (the trainer's ``staged_arrays``) every
+    staged tensor equals the eager path's host array, exactly.  Most steps
+    must reach the consumer with their event still pending, so a consumer
+    that did not wait on it would read the copies' destinations before they
+    are written."""
+    _need_card()
+
+    def loader():
+        return OnlineDynamicLoader(
+            get_dataset("uniform_narrow", scale=0.05), 2,
+            OdbConfig(l_max=512, buffer_size=64, prefetch_factor=16),
+            bucket_spec=BucketSpec(min_len=128, max_len=16384, max_count=1024),
+            layout="packed", vocab_size=512,
+        )
+
+    eager = loader()
+    want = [global_batch_arrays(s.batches, eager.layout) for s in eager.epoch(0)]
+    streaming = loader()
+    stage = streaming._stage_device
+
+    def delayed_stage(loader_step, device, stream):
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            torch.cuda._sleep(50_000_000)  # ~25 ms of a long kernel before the copies
+        return stage(loader_step, device, stream)
+
+    streaming._stage_device = delayed_stage
+    got, pending = [], 0
+    for ls in streaming.streaming_epoch(0, prefetch=True, device_put=True, device="cuda",
+                                        num_workers=num_workers):
+        staged = ls.device
+        assert isinstance(staged.event, torch.cuda.Event)
+        assert all(t.is_pinned() for t in staged.host.values())
+        pending += not staged.event.query()
+        arrays = staged_arrays(staged, "cuda")
+        assert all(t.is_cuda for t in arrays.values())
+        got.append({k: v.cpu().numpy() for k, v in arrays.items()})
+    assert len(got) == len(want) > 3
+    # The race is real: most steps reach the consumer before their copies ran.
+    assert pending >= len(got) // 2, f"{pending} of {len(got)} steps arrived with copies pending"
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b)
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert streaming.last_prefetch_stats.consumed == len(want)
+    if num_workers:
+        assert streaming.last_worker_stats.completed == len(want)
 
 
 SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}

@@ -141,7 +141,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch.serve, repro_torch.launch.serve, repro_torch.bridge, "
-        "repro_torch.launch.train, repro_torch.kernels.ops; "
+        "repro_torch.launch.train, repro_torch.kernels.ops, repro_torch.stream, "
+        "repro_torch.stream.workers; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

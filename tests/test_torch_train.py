@@ -265,13 +265,10 @@ def test_loader_epoch_matches_jax_streaming(layout, world, join):
 # -- (e) three trainer steps ----------------------------------------------------------
 
 
-def test_trainer_three_steps_match_jax(jax_params):
-    """Port (CPU, packed, flash pruned) against JAX (packed, flash pruned,
-    interpret mode): per-step loss and grad_norm at rtol 1e-4 (fp32 sums in
-    another order over a few thousand tokens), and the weights afterwards
-    within 2·Σ lr_t: one AdamW step moves an element by at most ~lr·(1 + wd·|p|)
-    whatever its gradient, so an element whose near-zero gradient differs in
-    sign between the two can end up to 2·lr apart per step."""
+def _three_steps(jax_params, jax_trainer_cfg: dict, trainer_cfg: dict):
+    """Three steps of the JAX trainer and of the port's (CPU, packed, flash
+    pruned; interpret-mode Pallas on the JAX side) from the same weights,
+    with the given data-path settings on each side."""
     steps = 3
     jcfg = dataclasses.replace(jax_smoke_config("qwen3_0_6b"), attn_impl="flash",
                                attn_grid="pruned")
@@ -279,7 +276,7 @@ def test_trainer_three_steps_match_jax(jax_params):
                                attn_grid="pruned")
     opt = dict(total_steps=100)
     jtrainer = JaxTrainer(JaxLM(jcfg), _jax_loader(2, "packed"), jax_optimizer.OptimizerConfig(**opt),
-                          JaxTrainerConfig(log_every=1, max_steps=steps, prefetch=False))
+                          JaxTrainerConfig(log_every=1, max_steps=steps, **jax_trainer_cfg))
     jstate, _ = jtrainer.train_epoch({"params": jax.tree.map(jnp.asarray, jax_params),
                                       "opt": jax_optimizer.init_opt_state(
                                           jax.tree.map(jnp.asarray, jax_params),
@@ -287,7 +284,7 @@ def test_trainer_three_steps_match_jax(jax_params):
 
     model = LM(tcfg, device="cpu")
     trainer = Trainer(model, _port_loader(2, "packed"), optimizer.OptimizerConfig(**opt),
-                      TrainerConfig(log_every=1, max_steps=steps))
+                      TrainerConfig(log_every=1, max_steps=steps, **trainer_cfg))
     params = model.load_params(params_from_jax(jax_params, tcfg, "cpu"))
     state, n = trainer.train_epoch({"params": params,
                                     "opt": optimizer.init_opt_state(params, trainer.opt_cfg)})
@@ -306,6 +303,35 @@ def test_trainer_three_steps_match_jax(jax_params):
         np.testing.assert_allclose(a, np.asarray(b), atol=2 * lr_sum, rtol=0)
         moved = max(moved, float(np.abs(a - p0).max()))
     assert moved > lr_sum / 2  # the weights did move
+    return trainer, jtrainer
+
+
+def test_trainer_three_steps_match_jax(jax_params):
+    """Port (CPU, packed, flash pruned) against JAX (packed, flash pruned,
+    interpret mode): per-step loss and grad_norm at rtol 1e-4 (fp32 sums in
+    another order over a few thousand tokens), and the weights afterwards
+    within 2·Σ lr_t: one AdamW step moves an element by at most ~lr·(1 + wd·|p|)
+    whatever its gradient, so an element whose near-zero gradient differs in
+    sign between the two can end up to 2·lr apart per step."""
+    _three_steps(jax_params, dict(prefetch=False), {})
+
+
+@pytest.mark.parametrize("data_path", [
+    {},  # the default: streaming with prefetch
+    dict(streaming=False, device_put=True),  # eager, arrays staged by the loader
+    dict(num_workers=2, device_put=True),  # worker processes + producer staging
+], ids=["default", "eager-device-put", "workers-device-put"])
+def test_trainer_data_paths_match_jax_default(jax_params, data_path):
+    """The port's data paths against the JAX trainer's default (streaming
+    with prefetch), at the tolerances of test_trainer_three_steps_match_jax;
+    after the epoch the prefetch thread is stopped and the audit covers the
+    whole epoch, as in JAX."""
+    trainer, jtrainer = _three_steps(jax_params, {}, data_path)
+    assert dataclasses.asdict(trainer.loader.last_audit) == dataclasses.asdict(
+        jtrainer.loader.last_audit)
+    stats = trainer.loader.last_prefetch_stats
+    if data_path.get("streaming", True):
+        assert stats is not None and stats.consumed == 3
 
 
 # -- (f) the launcher -------------------------------------------------------------------
@@ -327,3 +353,35 @@ def test_train_launcher_on_cpu(capsys, monkeypatch):
     monkeypatch.setattr(sys, "argv", argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--eager"],
+    ["--no-prefetch", "--lookahead", "8"],
+    ["--device-put", "--num-workers", "2", "--prefetch-depth", "3"],
+    ["--max-quarantine", "2"],
+], ids=["eager", "no-prefetch-lookahead", "device-put-workers", "fault-knobs"])
+def test_train_launcher_data_path_flags(capsys, monkeypatch, flags):
+    """Every data-path flag runs on the CPU: three finite losses and a full
+    identity coverage audit; the streaming paths report their prefetch and
+    worker stats."""
+    import math
+
+    from repro_torch.launch import train
+
+    argv = ["train", "--smoke", "--layout", "packed", "--steps", "3", "--world", "2",
+            "--l-max", "512", "--dataset", SMALL[0], "--data-scale", str(SMALL[1]),
+            "--log-every", "1", *flags]
+    monkeypatch.setattr(sys, "argv", argv + ["--device", "cpu"])
+    train.main()
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss ")[1].split()[0]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses), out
+    assert "eta_identity=0.0" in out
+    assert ("prefetch hit_rate=" in out) == ("--eager" not in flags and "--no-prefetch" not in flags)
+    assert ("workers completed=" in out) == ("--num-workers" in flags)
+    if "--device-put" in flags and not torch.cuda.is_available():
+        monkeypatch.setattr(sys, "argv", argv)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main()
