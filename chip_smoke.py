@@ -69,25 +69,57 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                and the sha256 of the fp32 route's outputs over its cases (equal
                across two trees means bit-identical outputs);
                once against the sequential recurrence in fp32;
-7. ssm       — full-width mamba2-130m in bf16 (random weights from seed 0):
+7. ssd_grad  — the SSD's autograd Function (``kernels/ops.ssd_chunked_scan``
+               under grad: K7 forward, the plain chunked form's gradient
+               backward) against plain autograd through the plain version,
+               at the JAX sweep shapes and at the full-width (2, 2048, 24, 64,
+               128, 256) with dt and a drawn from mamba2's init (dt_bias 0,
+               a over [-1, -16]: exp(acs_i - acs_j) overflows fp32 above the
+               diagonal), on the column views the model passes, in fp32 (2e-5)
+               and bf16 (2e-2): y at the SSD tolerance, the gradients of x, B,
+               C (one tensor), dt and a, each case's worst error printed as a
+               share of its allowance, every gradient finite, one K7 launch;
+8. ssm       — full-width mamba2-130m in bf16 (random weights from seed 0):
                ``LM.prefill`` of 8 prompts x 2048 tokens (K7 must launch 24
                times) and 32 greedy ``LM.decode_step``s (K7 never); prefill
                ms, decode ms per step, tokens/s, peak memory and
                ``torch.profiler``'s busy share.  The fp32 rail at 2 x 512:
                teacher-forced decode equals the full forward at 2e-3, and the
                card's prefill logits equal the CPU port's at 1e-3;
-8. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+9. ssm_train — ``Trainer`` on full-width mamba2-130m in bf16 (random weights
+               from seed 0) through the train launcher (``--arch mamba2_130m
+               --layout dense --world 2 --l-max 4096``, SSM_TRAIN_STEPS steps):
+               finite loss and grad_norm every step, K7 launched 2 x 24 times
+               per step (remat recomputes the forward); tokens/s over steps
+               2..4, step time, peak memory; over two more steps the device
+               time of the forward, the backward (remat's recompute included)
+               and the optimizer, and of the SSD backward (the plain form's
+               gradient) inside the backward, from CUDA events; then
+               ``torch.profiler``'s busy share and largest kernels over two
+               more;
+10. resume   — the same trainer with a checkpoint every two steps (keep two)
+               for four steps into a directory under ``build/`` that is
+               removed at the end: a fresh trainer's ``restore_or_init``
+               restores step 4 with every leaf ``torch.equal`` to the first
+               run's state and trains two more steps with finite losses; save
+               and restore seconds and bytes; then the launcher's restart
+               loop with ``--checkpoint-dir`` on the smoke config for 20 steps
+               (the launcher saves every 20, as the JAX launcher does) must
+               leave ``latest.json`` at step 20 and a readable
+               ``step_00000020.npz``;
+11. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
                the bound, each kernel's share of its bound and its ratio to
-               the yardstick; K7 at (8, 2048) and (1, 32768) in bf16 beside its
+               the yardstick; K7 at (8, 2048), (1, 32768) and the first SSM
+               training step's (2, 6144) in bf16 beside its
                plain version and its bound (no PyTorch call computes the SSD),
                with its device kernels per call and their times under
                ``torch.profiler`` (a bf16 call must launch four), its bound share
                and its scratch bytes (peak allocated during one call, less y
                and the final state);
-9. kernels   — one JSON line with every ported kernel.
+12. kernels  — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -98,6 +130,7 @@ hashes tuples, so the training shapes are the same in every run.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -157,10 +190,24 @@ SSD_SWEEP = ((1, 64, 1, 8, 16, 16), (2, 128, 3, 8, 16, 32), (1, 256, 2, 16, 32, 
              (2, 96, 4, 8, 8, 32))
 SSD_FULL = (2, 2048, 24, 64, 128, 256)
 SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-3), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
-SSD_TIMES = ((8, 2048), (1, 32768))  # (B, S) at full width, bf16
+# (B, S) at full width, bf16: the ssm phase's prefill, one long sequence, and
+# the ssm_train phase's first step (the SSD of every layer's forward)
+SSD_TIMES = ((8, 2048), (1, 32768), (2, 6144))
 SSD_BF16_KERNELS = 4  # device kernels of one bf16 K7 call: scores, chunk states, state pass, outputs
 SSM_ROWS, SSM_PROMPT, SSM_DECODE = 8, 2048, 32  # the ssm phase's prefill and decode
 SSM_RAIL = (2, 512, 384)  # fp32 rail: rows, tokens, prefill length before teacher forcing
+# The SSM training run: the train launcher's flags (steps of 2 x 3072 to
+# 2 x 6144 token slots).
+SSM_TRAIN_STEPS = 4
+SSM_TRAIN_ARGS = ["--arch", "mamba2_130m", "--layout", "dense", "--world", "2", "--l-max", "4096",
+                  "--steps", str(SSM_TRAIN_STEPS), "--log-every", "1"]
+# The launcher run of the resume phase: the smoke config, long enough for
+# the launcher's first checkpoint.
+# The ssm_train phase's record_function ranges around a step's phases.
+RANGE_PREFIX = "ssm_train/"
+RESUME_LAUNCHER_ARGS = ["--arch", "mamba2_130m", "--smoke", "--layout", "dense", "--world", "2",
+                        "--l-max", "512", "--dataset", "uniform_narrow", "--data-scale", "0.05",
+                        "--log-every", "20"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -399,12 +446,22 @@ def record_prefill(engine, sink: list) -> None:
     engine._prefill_fn = wrapped
 
 
-def profile_run(run, tag: str, unit: str) -> None:
+def is_kernel(e) -> bool:
+    """A profiler event that is work on the card: not the device-side copy
+    of one of this script's ``record_function`` ranges (named RANGE_PREFIX
+    ...), which the profiler also lists among the device's events."""
+    import torch
+
+    return e.device_type() == torch.autograd.DeviceType.CUDA and not e.name().startswith(RANGE_PREFIX)
+
+
+def profile_run(run, tag: str, unit: str) -> tuple | None:
     """Where the time goes: the card's kernel time against the wall clock of
     the same work (``run`` returns how many ``unit``s it did), and the
     kernels that take most of it, under ``torch.profiler`` (which adds host
     overhead, so the busy share it gives is a lower bound for the unprofiled
-    run)."""
+    run).  Returns the device ms by kernel name and the raw events, or None
+    without device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -415,11 +472,11 @@ def profile_run(run, tag: str, unit: str) -> None:
     # The profiler's raw events: the kernels and durations that
     # ``prof.events()`` lists, without building its Python object for each
     # of the ~10^5 host ops of a training step (which takes seconds).
-    kernels = [e for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    events = prof.profiler.kineto_results.events()
+    kernels = [e for e in events if is_kernel(e)]
     if not kernels:
         print(f"[{tag}] the profiler recorded no device events: device busy share not measured")
-        return
+        return None
     by_name: dict = {}
     for e in kernels:
         by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
@@ -429,6 +486,7 @@ def profile_run(run, tag: str, unit: str) -> None:
           f"over {units} {unit}s)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]   {ms:8.2f} ms  {name[:100]}")
+    return by_name, events
 
 
 def phase_serving():
@@ -968,6 +1026,88 @@ def phase_ssd(rng) -> float:
     return max_err
 
 
+def ssd_grad_case(rng, shape, dtype, mamba_init: bool):
+    """The SSD's inputs on the card as the model hands them over: ``xbc``,
+    one (B, S, H*P + 2N) tensor that x, B and C are column views of, and dt,
+    a fp32, and a cotangent weight w.  With ``mamba_init``, dt =
+    softplus(N(0, 0.25)) (dt_bias 0) and a over [-1, -16], as mamba2's init
+    draws them; else the JAX sweep's draws."""
+    import numpy as np
+    import torch
+
+    b, s, h, p, n, _ = shape
+    xbc = torch.from_numpy(np.concatenate(
+        [rng.standard_normal((b, s, h * p), dtype=np.float32) * 0.5,
+         rng.standard_normal((b, s, 2 * n), dtype=np.float32) * 0.4], axis=-1)).to("cuda", dtype)
+    if mamba_init:
+        dt = torch.nn.functional.softplus(torch.from_numpy(
+            rng.standard_normal((b, s, h), dtype=np.float32) * 0.5)).cuda()
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    else:
+        dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32)))).cuda()
+        a = -torch.from_numpy(np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.standard_normal((b, s, h, p), dtype=np.float32)).cuda()
+    return xbc, dt, a, w
+
+
+def split_xbc(xbc, h: int, p: int, n: int):
+    """x (B, S, H, P), B and C (B, S, N): views of ``xbc``, as the model slices them."""
+    b, s, _ = xbc.shape
+    return xbc[..., : h * p].reshape(b, s, h, p), xbc[..., h * p : h * p + n], xbc[..., h * p + n :]
+
+
+def phase_ssd_grad(rng) -> float:
+    """The SSD's autograd Function (K7 forward, the plain chunked form's
+    gradient backward) against plain autograd through the plain version;
+    returns the largest bf16 gradient error."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    worst = 0.0
+    for shape in SSD_SWEEP + (SSD_FULL,):
+        b, s, h, p, n, chunk = shape
+        full = shape == SSD_FULL
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            xbc, dt, a, w = ssd_grad_case(rng, shape, dtype, mamba_init=full)
+            out = {}
+            for route in ("function", "plain"):
+                leaves = [t.detach().clone().requires_grad_() for t in (xbc, dt, a)]
+                x, bp, cp = split_xbc(leaves[0], h, p, n)
+                ssd.reset_launches()
+                if route == "function":
+                    y = ops.ssd_chunked_scan(x, leaves[1], leaves[2], bp, cp, chunk=chunk)
+                    check(ssd.LAUNCHES["ssd_scan"] == 1,
+                          f"the SSD Function launched K7 {ssd.LAUNCHES['ssd_scan']} times at {shape}")
+                else:
+                    y, _ = ssd_chunked_ref(x, leaves[2][None, None, :] * leaves[1], leaves[1], bp, cp, chunk)
+                out[route] = (y, torch.autograd.grad((y.float() * w).sum(), leaves))
+            torch.cuda.synchronize()
+            (y, grads), (ry, rgrads) = out["function"], out["plain"]
+            check(torch.allclose(y.float(), ry.float(), **SSD_TOL[dname]),
+                  f"SSD Function y vs plain at {shape} {dname}")
+            tol = dict(atol=TOL[dname], rtol=TOL[dname])
+            parts = []
+            for name, g, ref in zip(("x|B|C", "dt", "a"), grads, rgrads):
+                check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(ref).all()),
+                      f"SSD gradient of {name} not finite at {shape} {dname}")
+                err = (g.float() - ref.float()).abs().max().item()
+                check(torch.allclose(g.float(), ref.float(), **tol),
+                      f"SSD Function gradient of {name} vs plain autograd at {shape} {dname}: err {err}")
+                if dname == "bfloat16":
+                    worst = max(worst, err)
+                parts.append(f"{name} {err:.3g} (max |g| {ref.float().abs().max().item():.3g}; "
+                             f"{allowance_share(g, ref, tol):.3f} of the allowance)")
+            print(f"[ssd_grad] {shape} {dname} strided{', mamba2 init' if full else ''}: y err "
+                  f"{(y.float() - ry.float()).abs().max().item():.3g}; gradients vs plain autograd "
+                  f"(atol = rtol = {TOL[dname]}), all finite: " + ", ".join(parts))
+            del out, y, ry, grads, rgrads
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_ssm() -> int:
     """Full-width mamba2-130m: per-request prefill and greedy decode in bf16,
     then the fp32 rail.  Returns K7's launches in the prefill call."""
@@ -1080,6 +1220,260 @@ def phase_ssm() -> int:
     return prefill_launches
 
 
+@contextlib.contextmanager
+def step_phases_wrapped(model, wrap):
+    """Within the block, ``wrap(name, fn)`` wraps the train step's forward
+    (``LM.loss_sums`` on ``model``), its optimizer (the trainer's
+    ``adamw_update``) and every SSD backward (``_SsdScan.backward``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer as trainer_mod
+
+    update, backward = trainer_mod.adamw_update, ops._SsdScan.backward
+    model.loss_sums = wrap("forward", model.loss_sums)  # shadows the method on this instance
+    trainer_mod.adamw_update = wrap("optimizer", update)
+    ops._SsdScan.backward = staticmethod(wrap("ssd backward", backward))
+    try:
+        yield
+    finally:
+        del model.loss_sums
+        trainer_mod.adamw_update = update
+        ops._SsdScan.backward = backward
+
+
+def event_spans(marks, steps: int) -> dict:
+    """Device ms per step from (name, start, stop) CUDA events: forward,
+    optimizer and SSD backward as recorded; the backward from the forward's
+    end to the optimizer's start (remat's recompute included); the step from
+    the forward's start to the optimizer's end."""
+    spans = dict.fromkeys(("forward", "backward", "optimizer", "ssd backward", "step"), 0.0)
+    forward = None
+    for name, start, stop in marks:
+        spans[name] += start.elapsed_time(stop)
+        if name == "forward":
+            forward = (start, stop)
+        elif name == "optimizer":
+            spans["backward"] += forward[1].elapsed_time(start)
+            spans["step"] += forward[0].elapsed_time(stop)
+    return {name: ms / steps for name, ms in spans.items()}
+
+
+def kernel_ms_by_range(events) -> dict:
+    """Device kernel ms by the innermost ``record_function`` range named
+    RANGE_PREFIX... around the host op that launched the kernel (on the
+    op's thread); "rest" for kernels launched outside every such range."""
+    import torch
+
+    ops, ranges = {}, {}
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name().startswith(RANGE_PREFIX):
+            ranges.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns(), e.name()[len(RANGE_PREFIX):]))
+        elif e.linked_correlation_id() == 0:  # a host op (kernels and launches link to one)
+            ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+    out: dict = {}
+    for e in events:
+        if not is_kernel(e):
+            continue
+        name, op = "rest", ops.get(e.linked_correlation_id())
+        if op is not None:
+            inside = [r for r in ranges.get(op[0], ()) if r[0] <= op[1] <= r[1]]
+            if inside:
+                name = max(inside)[2]  # the latest start: the innermost range
+        out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6
+    return out
+
+
+def phase_ssm_train() -> dict:
+    """Full-width mamba2-130m training through the train launcher; returns
+    K7's launches in the measured run and what the kernels line reports."""
+    import math
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tag = "[ssm_train]"
+    t_run = time.perf_counter()
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(SSM_TRAIN_ARGS))
+    cfg = trainer.model.cfg
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f}M params {cfg.dtype}, "
+          f"remat {cfg.remat}; {' '.join(SSM_TRAIN_ARGS)}")
+    reg, tracer = obs.default_registry(), obs.default_tracer()
+    reg.reset()
+    tracer.reset()
+    tracer.enable()  # the trainer then syncs the card at the end of each step
+    torch.cuda.reset_peak_memory_stats()
+    ssd.reset_launches()
+    t0 = time.perf_counter()
+    state, steps = trainer.train_epoch(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssd.LAUNCHES["ssd_scan"]
+    tracer.disable()
+    step_s = [e["dur"] / 1e6 for e in tracer.events() if e["name"] == "train/step"]
+    peak = torch.cuda.max_memory_allocated()
+    check(steps == SSM_TRAIN_STEPS and len(trainer.history) == steps, f"{tag} {steps} steps run")
+    for rec in trainer.history:
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{tag} step {rec['step']}: loss {rec['loss']} grad_norm {rec['grad_norm']}")
+        print(f"{tag} {Trainer.format_log_line(rec)}")
+    want = 2 * cfg.n_layers * steps
+    check(launches == want, f"{tag} K7 launched {launches} times in {steps} steps, not {want}")
+    tokens = [rec["tokens"] for rec in trainer.history]
+    tokens_2_4 = sum(tokens[1:]) / sum(step_s[1:])
+    print(f"{tag} K7 launches {launches} ({steps} steps x {cfg.n_layers} layers x 2: remat runs the "
+          f"forward twice); tokens/s {reg.flat()['train_tokens_total'] / wall:.1f} over all {steps} "
+          f"steps, {tokens_2_4:.1f} over steps 2..{steps}; step s {[round(t, 4) for t in step_s]}; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+
+    def two_more():
+        Trainer(trainer.model, loader, trainer.opt_cfg,
+                TrainerConfig(log_every=2, max_steps=2)).train_epoch(state)
+        torch.cuda.synchronize()
+        return 2
+
+    # Two more steps with CUDA events around the phases: their device spans.
+    marks = []
+
+    def event_timed(name, fn):
+        def call(*args, **kwargs):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            marks.append((name, start, stop))
+            return out
+        return call
+
+    with step_phases_wrapped(trainer.model, event_timed):
+        two_more()
+    split = event_spans(marks, 2)
+    print(f"{tag} device spans per step over 2 more steps (CUDA events): forward {split['forward']:.1f} ms, "
+          f"backward {split['backward']:.1f} (remat's recompute included), optimizer "
+          f"{split['optimizer']:.1f}, step {split['step']:.1f}; the SSD backward (the plain chunked "
+          f"form's gradient, {cfg.n_layers} calls) {split['ssd backward']:.1f} ms, "
+          f"{split['ssd backward'] / split['step']:.3f} of the step")
+
+    # Two more under the profiler, the same phases as ranges: kernel time.
+    def annotated(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(RANGE_PREFIX + name):
+                return fn(*args, **kwargs)
+        return call
+
+    with step_phases_wrapped(trainer.model, annotated):
+        profiled = profile_run(two_more, "ssm_train", "step")
+    k7_ms, kernel_split = None, {}
+    if profiled is not None:
+        by_name, events = profiled
+        k7_ms = sum(ms for name, ms in by_name.items() if "ssd" in name) / 2
+        kernel_split = {name: ms / 2 for name, ms in kernel_ms_by_range(events).items()}
+        total = sum(kernel_split.values())
+        print(f"{tag} device kernel ms per step by phase (profiled): " + ", ".join(
+            f"{name} {ms:.1f} ({ms / total:.3f})" for name, ms in sorted(kernel_split.items()))
+            + f"; rest = the backward outside the SSD's (remat's recompute included) and glue; "
+              f"K7's kernels {k7_ms:.2f} ms")
+    print(f"{tag} {time.perf_counter() - t_run:.1f}s in all")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return dict(launches=launches, launches_per_step=launches // steps, tokens_per_s_2_4=tokens_2_4,
+                step_s=step_s, peak_gib=peak / 2**30, k7_ms_per_step=k7_ms,
+                kernel_ms_per_step=kernel_split,
+                **{f"{name.replace(' ', '_')}_ms_per_step": ms for name, ms in split.items()})
+
+
+def phase_resume() -> None:
+    """Checkpoints of full-width mamba2 training: a save every two steps, a
+    restore into a fresh trainer, two more steps; then the launcher's
+    restart loop on the smoke config up to its first checkpoint."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import tree_leaves
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    directory = pathlib.Path(tempfile.mkdtemp(prefix="resume-", dir=ROOT / "build"))
+    save, restore = ckpt.save_checkpoint, ckpt.restore_checkpoint
+    seconds = {"save": [], "restore": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    def trainer_for(steps: int):
+        argv = [*SSM_TRAIN_ARGS, "--checkpoint-dir", str(directory)]
+        argv[argv.index("--steps") + 1] = str(steps)
+        trainer, _ = train_launcher.build(train_launcher.parser().parse_args(argv))
+        trainer.cfg = dataclasses.replace(trainer.cfg, checkpoint_every=2, keep_checkpoints=2)
+        return trainer
+
+    ckpt.save_checkpoint, ckpt.restore_checkpoint = timed("save", save), timed("restore", restore)
+    try:
+        first = trainer_for(4)
+        state, step = first.restore_or_init(torch.Generator(device="cuda").manual_seed(0))
+        check(step == 0, f"[resume] a fresh directory restored step {step}")
+        state, step = first.train_epoch(state, start_step=step)
+        files = sorted(p.name for p in directory.glob("step_*.npz"))
+        check(step == 4 and ckpt.latest_step(directory) == 4
+              and files == ["step_00000002.npz", "step_00000004.npz"],
+              f"[resume] after {step} steps: latest {ckpt.latest_step(directory)}, files {files}")
+        nbytes = (directory / "step_00000004.npz").stat().st_size
+        fresh = trainer_for(6)
+        restored, step = fresh.restore_or_init(torch.Generator(device="cuda").manual_seed(1))
+        check(step == 4, f"[resume] restored step {step}, not 4")
+        pairs = list(zip(tree_leaves(restored), tree_leaves(state)))
+        check(len(pairs) == len(tree_leaves(state)) and all(
+            a.device == b.device and a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+            "[resume] the restored state differs from the saved one")
+        del state, first
+        restored, step = fresh.train_epoch(restored, start_step=step)
+        losses = [rec["loss"] for rec in fresh.history]
+        check(step == 6 and len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"[resume] two more steps after the restore: step {step}, losses {losses}")
+        print(f"[resume] full width: checkpoints at steps 2 and 4 (keep 2), {nbytes} bytes each; save s "
+              f"{[round(t, 3) for t in seconds['save']]}, restore s "
+              f"{[round(t, 3) for t in seconds['restore']]}; step 4 restored with each of {len(pairs)} "
+              f"leaves torch.equal to the saved state; steps 5-6 losses {losses}")
+        del restored, fresh
+        torch.cuda.empty_cache()
+        shutil.rmtree(directory)
+        directory.mkdir()
+        args = train_launcher.parser().parse_args(
+            [*RESUME_LAUNCHER_ARGS, "--steps", "20", "--checkpoint-dir", str(directory)])
+        trainer, _ = train_launcher.build(args)
+        _, step = train_launcher.run(trainer, args)
+        check(step == 20 and ckpt.latest_step(directory) == 20,
+              f"[resume] launcher: step {step}, latest {ckpt.latest_step(directory)}")
+        like = trainer.init_state(torch.Generator(device="cuda").manual_seed(2))
+        check(ckpt.restore_checkpoint(directory, like, cfg=trainer.model.cfg, step=20) == 20,
+              "[resume] the launcher's step_00000020.npz is not readable")
+        print(f"[resume] launcher --checkpoint-dir on the smoke config, 20 steps: latest.json step 20, "
+              f"step_00000020.npz readable ({(directory / 'step_00000020.npz').stat().st_size} bytes)")
+    finally:
+        ckpt.save_checkpoint, ckpt.restore_checkpoint = save, restore
+        shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     """(FLOPs, bytes) of the least work of one K7 call with the final state:
     C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
@@ -1121,11 +1515,12 @@ def ssd_device_launches(call, calls: int = 10) -> tuple:
 
 
 def phase_times_ssd(rng) -> list:
-    """K7 and its plain version at the [ssm] prefill's shape (8, 2048) and at
-    one long sequence, as the prefill calls it (strided views, no initial
-    state, final state out): y and the final state held against each other
-    at the bf16 tolerance, the device launches of one call counted under the
-    profiler, then each timed."""
+    """K7 and its plain version at the [ssm] prefill's shape (8, 2048), at
+    one long sequence and at the first SSM training step's (2, 6144), as the
+    model calls it (strided views, no initial state, final state out): y and
+    the final state held against each other at the bf16 tolerance, the
+    device launches of one call counted under the profiler, then each
+    timed."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -1215,9 +1610,12 @@ def main() -> None:
     max_err = timed(phase_parity, np.random.default_rng(0), train_seg)
     max_err.update(timed(phase_backward, np.random.default_rng(2), train_seg))
     ssd_err = timed(phase_ssd, np.random.default_rng(4))
+    ssd_grad_err = timed(phase_ssd_grad, np.random.default_rng(7))
     serve_launches = timed(phase_serving)
     train_launches = timed(phase_training)
     ssm_launches = timed(phase_ssm)
+    ssm_train = timed(phase_ssm_train)
+    timed(phase_resume)
     serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = timed(phase_times_training, np.random.default_rng(3), train_seg)
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
@@ -1241,15 +1639,28 @@ def main() -> None:
                 serving_shape=[serve_times["rows"], serve_times["cap"], HEADS, KV_HEADS, D_HEAD],
             )
         kernels.append(entry)
-    main_shape, long_shape = ssd_times
+    main_shape, long_shape, train_shape = ssd_times
     kernels.append(dict(
         name="ssd_scan", route="cuda", source=SSD, replaces=SSD_REPLACES,
-        launches=ssm_launches, max_abs_err=max(ssd_err, main_shape["max_abs_err"]),
+        launches=ssm_train["launches"], max_abs_err=max(ssd_err, main_shape["max_abs_err"]),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"], library_ms=None,
         shape=main_shape["shape"], dtype="bfloat16",
-        launches_note=f"one LM.prefill of {SSM_ROWS} x {SSM_PROMPT} on mamba2-130m; "
-                      f"{SSM_DECODE} decode steps launch none",
+        launches_note=f"{SSM_TRAIN_STEPS} training steps of mamba2-130m ({' '.join(SSM_TRAIN_ARGS[:8])}): "
+                      f"{ssm_train['launches_per_step']} per step, the forward of the SSD's autograd "
+                      f"Function (remat runs it twice); one LM.prefill of {SSM_ROWS} x {SSM_PROMPT} "
+                      f"launches launches_prefill, {SSM_DECODE} decode steps none",
+        launches_prefill=ssm_launches,
+        training_route=dict(
+            forward="K7 (kernels/ops.py _SsdScan.forward)",
+            backward="autograd of the plain chunked form (kernels/ref.py ssd_chunked_ref); no TPU kernel",
+            launches_per_step=ssm_train["launches_per_step"], grad_max_abs_err=ssd_grad_err,
+            shape=train_shape["shape"], ms=train_shape["ms"], plain_ms=train_shape["plain_ms"],
+            bound_ms=train_shape["bound_ms"], bound_by=train_shape["bound_by"],
+            max_abs_err=train_shape["max_abs_err"], k7_ms_per_step=ssm_train["k7_ms_per_step"],
+            ssd_backward_span_ms_per_step=ssm_train["ssd_backward_ms_per_step"],
+            step_span_ms=ssm_train["step_ms_per_step"],
+            kernel_ms_per_step=ssm_train["kernel_ms_per_step"]),
         long_shape=long_shape["shape"], long_ms=long_shape["ms"], long_plain_ms=long_shape["plain_ms"],
         long_bound_ms=long_shape["bound_ms"], long_bound_by=long_shape["bound_by"],
         device_launches_per_call=main_shape["device_launches"],

@@ -2,7 +2,10 @@
 
 ``params_from_jax`` takes the pytree that the JAX ``LM.init`` returns, as
 numpy arrays (``jax.tree.map(np.asarray, params)``); ``params_to_jax`` is its
-inverse, for comparing trained weights leaf by leaf.  Neither imports JAX.
+inverse, for comparing trained weights leaf by leaf (as fp32 numpy).  Its
+dtype-keeping twin ``jax_layout`` arranges the port's own tensors in the JAX
+tree's layout without copying them, which the checkpoints use to write and
+restore a state under the JAX package's keys.  None imports JAX.
 The JAX stack stores every layer of a scanned unit stacked on a leading axis
 (``params["stack"]["sub{j}"]``); the port keeps one entry per layer, so that
 axis is unstacked (and restacked) in layer order.  Projections keep the
@@ -57,23 +60,31 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def params_to_jax(params: dict, cfg) -> dict:
-    """The JAX-layout tree, as fp32 numpy arrays, from the port's tree: every
-    unit's layers stacked on a leading axis under ``stack/sub{j}``."""
+def jax_layout(tree: dict, cfg) -> dict:
+    """A port tree (the weights, or an optimizer moment of the same shape)
+    in the JAX tree's layout, with the port's own tensors as leaves: a leaf
+    under ``stack/sub{j}`` is the list of the units' tensors, in unit order,
+    that the JAX package stacks on a leading axis."""
     plan = stack_plan(cfg)
     stack = {}
     for j in range(len(plan.unit_layers[0])):
-        per_unit = [params["layers"][unit[j]] for unit in plan.unit_layers]
-        stack[f"sub{j}"] = _stack([_map(layer, _array) for layer in per_unit])
+        stack[f"sub{j}"] = _zip([tree["layers"][unit[j]] for unit in plan.unit_layers])
     return {
-        "embed": _array(params["embed"]),
-        "unembed": _array(params["unembed"]),
-        "final_norm": _map(params["final_norm"], _array),
+        "embed": tree["embed"],
+        "unembed": tree["unembed"],
+        "final_norm": tree["final_norm"],
         "stack": stack,
     }
 
 
-def _stack(trees: list):
+def _zip(trees: list):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+        return {k: _zip([t[k] for t in trees]) for k in trees[0]}
+    return trees
+
+
+def params_to_jax(params: dict, cfg) -> dict:
+    """The JAX-layout tree, as fp32 numpy arrays, from the port's tree: every
+    unit's layers stacked on a leading axis under ``stack/sub{j}``."""
+    return _map(jax_layout(params, cfg), lambda leaf: (
+        np.stack([_array(t) for t in leaf]) if isinstance(leaf, list) else _array(leaf)))

@@ -13,7 +13,13 @@ runs K2+K3 or K5+K6 with the forward's block pair, grid and tables, so the
 three passes provably consume one resolution.  On CPU tensors both
 directions take the plain version.
 
-:func:`ssd_chunked_scan` is the kernel-backed Mamba-2 SSD (K7), forward only.
+:func:`ssd_chunked_scan` is the kernel-backed Mamba-2 SSD (K7), through
+:class:`_SsdScan`, an autograd Function whose forward is K7 and whose
+backward is the gradient of the plain chunked form
+(``kernels/ref.ssd_chunked_ref``), recomputed from the saved inputs.  That
+is the JAX package's own design: its trainer differentiates the jnp
+``ssd_chunked`` (``repro/models/ssm.py``), and the Pallas ``ssd_scan`` has
+no backward kernel, so there is no TPU kernel for this backward to port.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from repro_torch.kernels.flash_attention import (
     segment_flash_attention_pruned,
 )
 from repro_torch.kernels.liveness import LivenessTables, build_liveness_tables
+from repro_torch.kernels.ref import ssd_chunked_ref
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 GRID_MODES = ("dense", "pruned", "auto")
@@ -93,15 +100,50 @@ def flash_attention(
     return _Flash.apply(q, k, v, segment_ids, causal, block_q, block_kv, mode)
 
 
+class _SsdScan(torch.autograd.Function):
+    """y = SSD(x, adt, dt, B, C) with K7 forward and the plain form's VJP.
+
+    The forward saves the inputs as they come (x, B and C are column views
+    of the model's conv output; a copy would cost what the views avoid).
+    The backward recomputes ``ssd_chunked_ref`` on detached aliases of them
+    under grad and takes ``torch.autograd.grad`` for the inputs that need
+    it; each gradient comes back in its input's dtype.  On the bf16 route
+    K7's y carries its bf16 roundings (scaled x, the entering state and W as
+    two bf16 terms each), while the backward is the exact fp32 gradient of
+    the plain form.  The final state is not differentiable: training
+    discards it."""
+
+    @staticmethod
+    def forward(ctx, x, adt, dt, b_proj, c_proj, initial_state, chunk):
+        y, final = ssd_scan(x, adt, dt, b_proj, c_proj, chunk=chunk,
+                            initial_state=initial_state, return_final_state=True)
+        ctx.save_for_backward(x, adt, dt, b_proj, c_proj, initial_state)
+        ctx.chunk = min(chunk, x.shape[1])
+        ctx.mark_non_differentiable(final)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, _dfinal):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(inputs, ctx.needs_input_grad)]
+            y, _ = ssd_chunked_ref(*inputs[:5], ctx.chunk, inputs[5])
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs), None)
+
+
 def ssd_chunked_scan(
     x, dt, a, b_proj, c_proj, *, chunk: int = 256, initial_state=None,
     return_final_state: bool = False,
 ):
     """Kernel-backed SSD: y = SSD(x, dt, a, B, C) from ``initial_state``
-    (zero when None; fp32), with ``adt = a·dt`` formed here in fp32.
-    Returns ``y``, or ``(y, final_state)`` with ``return_final_state``."""
+    (zero when None; fp32), with ``adt = a·dt`` formed here in fp32, so the
+    gradients of ``a`` and ``dt`` through ``adt`` and ``dt`` join outside
+    the kernel.  Differentiable in x, dt, a, B, C and the initial state
+    (not through the final state).  Returns ``y``, or ``(y, final_state)``
+    with ``return_final_state``."""
     adt = (a[None, None, :] * dt).float()
-    return ssd_scan(
-        x, adt, dt.float(), b_proj, c_proj, chunk=chunk,
-        initial_state=initial_state, return_final_state=return_final_state,
-    )
+    y, final = _SsdScan.apply(x, adt, dt.float(), b_proj, c_proj, initial_state, chunk)
+    return (y, final) if return_final_state else y

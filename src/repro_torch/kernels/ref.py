@@ -153,9 +153,12 @@ def ssd_chunked_ref(
         y_i   = Σ_{j≤i} exp(acs_i − acs_j)·(C_i·B_j)·dt_j·x_j + exp(acs_i)·(C_i·state)
         state ← exp(acs_last)·state + Σ_j exp(acs_last − acs_j)·dt_j·x_j ⊗ B_j
 
-    The decay exp(acs_i − acs_j) is selected to 0 for j > i, never
-    multiplied by a mask (it may overflow to inf there).  Returns (y in x's
-    dtype, fp32 final state)."""
+    Above the diagonal (j > i) the difference acs_i − acs_j is positive and
+    its exp may overflow, so the difference is masked to −inf *before* the
+    exp, as the JAX package's ``_segsum`` does: the decay there is exactly
+    0, and so is its gradient (a mask after the exp would hand 0 to the
+    backward of an inf, 0·inf = NaN).  Returns (y in x's dtype, fp32 final
+    state)."""
     bsz, s, h, p = x.shape
     n = b_proj.shape[-1]
     if s % chunk:
@@ -173,7 +176,7 @@ def ssd_chunked_ref(
         cq = c_proj[:, c0:c0 + chunk].float()
         acs = torch.cumsum(adt[:, c0:c0 + chunk].float(), dim=1)  # (B, Q, H)
         acs_h = acs.transpose(1, 2)  # (B, H, Q)
-        l_mat = torch.where(tri, torch.exp(acs_h[..., :, None] - acs_h[..., None, :]), 0.0)
+        l_mat = torch.exp(torch.where(tri, acs_h[..., :, None] - acs_h[..., None, :], -torch.inf))
         scores = torch.einsum("bqn,bsn->bqs", cq, bq)  # (B, Q, Q)
         w = l_mat * scores[:, None] * dtq.transpose(1, 2)[:, :, None, :]  # (B, H, Q, Q)
         y_diag = torch.einsum("bhqs,bshp->bqhp", w, xq)

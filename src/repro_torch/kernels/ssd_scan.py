@@ -10,7 +10,9 @@ model's prefill needs.
 Given CUDA tensors it launches the kernel or raises; given CPU tensors it
 computes the plain version (``kernels/ref.ssd_chunked_ref``).  The kernel is
 forward only: on a CUDA tensor with grad mode on and an input that requires
-grad it raises, since the SSD backward is not ported.  Each call that launches
+grad it raises.  Training differentiates through ``kernels/ops.ssd_chunked_scan``,
+whose autograd Function runs this wrapper in its forward (grad mode off)
+and the plain chunked form's gradient in its backward.  Each call that launches
 adds one to :data:`LAUNCHES`, whatever the number of device launches behind
 it (one on the fp32 route, four on the bf16 route).
 
@@ -93,7 +95,8 @@ def _check_cuda(x, adt, dt, b_p, c_p, chunk, initial_state) -> None:
         t is not None and t.requires_grad for t in (x, adt, dt, b_p, c_p, initial_state)
     ):
         raise NotImplementedError(
-            "the SSD backward is not ported: call the SSD kernel under torch.no_grad()"
+            "the SSD backward is not ported as a kernel: differentiate through "
+            "kernels.ops.ssd_chunked_scan, or call the SSD kernel under torch.no_grad()"
         )
 
 

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \
         --layout packed --world 2 --l-max 4096 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_130m \
+        --layout dense --world 2 --l-max 4096 --checkpoint-dir ckpt
 
 Runs on the CUDA card; ``--device cpu`` (with ``--smoke`` for the reduced
 config) runs the same trainer on the CPU, where the flash route (an explicit
@@ -11,12 +13,20 @@ launcher's default: the streaming executor with a prefetch thread
 (``--no-prefetch`` runs it inline, ``--num-workers N`` moves layout building
 into N worker processes, ``--device-put`` stages the step arrays on the card
 from the producer); ``--eager`` takes the offline epoch instead.
+
+The steps run inside the JAX launcher's restart loop: with
+``--checkpoint-dir`` the trainer writes a checkpoint every
+``CHECKPOINT_EVERY`` steps, and a crash restores the latest one and counts a
+restart; an ``EpochAborted`` also writes its stream checkpoint to
+``<dir>/stream_abort.json``.  Past ``--max-restarts``, or without a
+checkpoint directory, the error is raised.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import pathlib
 
 import torch
 
@@ -25,8 +35,11 @@ from repro_torch.core import BucketSpec, OdbConfig
 from repro_torch.data import OnlineDynamicLoader, get_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
+from repro_torch.stream import EpochAborted
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+CHECKPOINT_EVERY = 20  # steps between checkpoints, as in the JAX launcher
 
 
 def build(args) -> tuple[Trainer, OnlineDynamicLoader]:
@@ -54,6 +67,7 @@ def build(args) -> tuple[Trainer, OnlineDynamicLoader]:
         model, loader,
         OptimizerConfig(total_steps=max(args.steps, 100)),
         TrainerConfig(
+            checkpoint_dir=args.checkpoint_dir, checkpoint_every=CHECKPOINT_EVERY,
             log_every=args.log_every, max_steps=args.steps,
             streaming=not args.eager, prefetch=not args.no_prefetch,
             prefetch_depth=args.prefetch_depth, lookahead=args.lookahead,
@@ -75,6 +89,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--buffer", type=int, default=256)
     ap.add_argument("--prefetch", type=int, default=64)
     ap.add_argument("--non-join", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--max-restarts", type=int, default=3)
     ap.add_argument(
         "--max-quarantine", type=int, default=0,
         help="per-epoch budget of samples whose online realization may fail "
@@ -125,15 +141,47 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def run(trainer: Trainer, args) -> tuple[dict, int]:
+    """Train to ``args.steps`` inside the restart loop; returns the state
+    and the step reached."""
+    device = trainer.model.device
+    restarts = 0
+    while True:
+        try:
+            state, step = trainer.restore_or_init(torch.Generator(device=device).manual_seed(0))
+            epoch = 0
+            while step < args.steps:
+                state, step = trainer.train_epoch(state, epoch=epoch, start_step=step)
+                epoch += 1
+            return state, step
+        except EpochAborted as exc:  # degraded-mode closure (DESIGN.md §15.4)
+            state = None  # the next attempt's state is built without this one beside it
+            restarts += 1
+            print(f"[train] epoch aborted ({exc.cause}); restart {restarts}/{args.max_restarts}")
+            if exc.failed_ranks:
+                print(f"[train] failed ranks: {exc.failed_ranks}")
+            if args.checkpoint_dir:
+                # The abort carries a valid stream checkpoint: kept beside
+                # the model checkpoints, so a later run can continue the
+                # same step sequence instead of replaying the epoch.
+                abort_path = pathlib.Path(args.checkpoint_dir) / "stream_abort.json"
+                exc.checkpoint().save(str(abort_path))
+                print(f"[train] abort stream checkpoint: {abort_path}")
+            if restarts > args.max_restarts or not args.checkpoint_dir:
+                raise
+        except Exception as exc:  # crash -> resume from the latest checkpoint
+            state = None
+            restarts += 1
+            print(f"[train] crash ({type(exc).__name__}: {exc}); restart {restarts}")
+            if restarts > args.max_restarts or not args.checkpoint_dir:
+                raise
+
+
 def main() -> None:
     args = parser().parse_args()
     trainer, loader = build(args)
     device = trainer.model.device
-    state = trainer.init_state(torch.Generator(device=device).manual_seed(0))
-    step, epoch = 0, 0
-    while step < args.steps:
-        state, step = trainer.train_epoch(state, epoch=epoch, start_step=step)
-        epoch += 1
+    run(trainer, args)
     print(
         f"[train] layout={args.layout} attn_impl={trainer.attn_impl} "
         f"attn_grid={trainer.attn_grid} device={device}"

@@ -1,9 +1,14 @@
 """Mamba-2 block: the SSD (state-space duality) chunked form (arXiv:2405.21060).
 
 The counterpart of the JAX package's ``repro.models.ssm``.  The SSD of every
-forward and prefill goes through ``kernels/ops.ssd_chunked_scan``: the CUDA
-kernel (K7) on the card, its plain version on CPU tensors.  A one-token step
-against a cache (decode) runs the recurrence directly, with no kernel.
+forward, training step and prefill goes through
+``kernels/ops.ssd_chunked_scan``: the CUDA kernel (K7) on the card, its plain
+version on CPU tensors; under grad its autograd Function takes the plain
+chunked form's gradient backward.  A one-token step against a cache (decode)
+runs the recurrence directly, with no kernel.  As in the JAX package, the
+mixer takes no segment ids: on the packed layout the state flows from one
+packed sample into the next, and only the shifted labels mask the targets
+across them.
 
 Roundings follow the JAX package: the SSD returns y in x's dtype, the skip
 term is added in fp32 and the sum cast back to the model dtype, the prefill

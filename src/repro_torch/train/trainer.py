@@ -12,9 +12,15 @@ The data path is the loader's streaming epoch by default (bounded
 admission window, prefetch thread, optional worker processes and staging of
 the step arrays on the card), as in the JAX package; ``streaming=False``
 takes the eager epoch, which delivers the same step sequence at the default
-lookahead.  Not ported yet: model checkpoints, the resume loop and the
-per-rank ``dp_shardmap_step``.  SSM training is not ported either:
-``Trainer`` refuses SSM configs.
+lookahead.  Both families train: the SSM layers' SSD runs K7 forward and the
+plain chunked form's gradient backward (``kernels/ops.ssd_chunked_scan``).
+
+With ``checkpoint_dir`` set, ``train_epoch`` writes a model checkpoint every
+``checkpoint_every`` steps (``train/checkpoint.py``, the JAX package's
+format) and :meth:`Trainer.restore_or_init` resumes from the latest one, as
+in the JAX package: the step counter and the optimizer state resume, and the
+epoch's data is replayed from its start.  Not ported yet: the per-rank
+``dp_shardmap_step``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch import obs
 from repro_torch.core.layout import BatchLayout, global_batch_arrays
 from repro_torch.data.loader import LoaderStep, OnlineDynamicLoader, StagedArrays
 from repro_torch.models.model import LM, shift_labels
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import (
     OptimizerConfig,
     adamw_update,
@@ -159,6 +166,9 @@ def assemble_model_batch(loader_step: LoaderStep, layout: BatchLayout, device) -
 
 @dataclasses.dataclass
 class TrainerConfig:
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
     log_every: int = 10
     max_steps: int | None = None
     # Data path selection (DESIGN.md §9): the streaming executor admits views
@@ -187,11 +197,6 @@ class Trainer:
         opt_cfg: OptimizerConfig | None = None,
         cfg: TrainerConfig | None = None,
     ):
-        if model.cfg.uses_ssm:
-            # The SSD kernel (K7) is forward only; whether SSM training runs
-            # the plain chunked form under autograd or a backward kernel is
-            # not decided yet, so no path trains an SSM stack.
-            raise NotImplementedError(f"SSM training is not ported ({model.cfg.name})")
         self.model = model
         self.loader = loader
         self.opt_cfg = opt_cfg or OptimizerConfig()
@@ -218,6 +223,15 @@ class Trainer:
     def init_state(self, generator: torch.Generator | None = None) -> dict:
         params = self.model.init(generator)
         return {"params": params, "opt": init_opt_state(params, self.opt_cfg)}
+
+    def restore_or_init(self, generator: torch.Generator | None = None) -> tuple[dict, int]:
+        """A fresh state and step 0, or, when ``checkpoint_dir`` holds a
+        checkpoint, the latest readable one copied into the fresh state's
+        tensors and its step."""
+        state = self.init_state(generator)
+        if self.cfg.checkpoint_dir and ckpt.latest_step(self.cfg.checkpoint_dir) is not None:
+            return state, ckpt.restore_checkpoint(self.cfg.checkpoint_dir, state, cfg=self.model.cfg)
+        return state, 0
 
     def _epoch_steps(self, epoch: int):
         """Pick the data path: streaming (default, overlapped) or eager."""
@@ -292,6 +306,11 @@ class Trainer:
                         metrics, loader_step, step_idx, emitted, tokens_seen, dt
                     )
                     self.history.append(rec)
+                if self.cfg.checkpoint_dir and step_idx % self.cfg.checkpoint_every == 0:
+                    ckpt.save_checkpoint(
+                        self.cfg.checkpoint_dir, step_idx, state, cfg=self.model.cfg,
+                        keep=self.cfg.keep_checkpoints,
+                    )
                 if self.cfg.max_steps and step_idx >= self.cfg.max_steps:
                     break
         finally:

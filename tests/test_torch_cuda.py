@@ -1,6 +1,7 @@
 """Card-only checks of the port: the CUDA kernels, the engine, a train step,
-the streaming data path's staging of step arrays on the card, and the SSM
-model's prefill and decode on the GPU.
+the streaming data path's staging of step arrays on the card, the SSM
+model's prefill and decode, the SSD's autograd Function and a bf16 SSM
+checkpoint on the GPU.
 
 Every test here is marked ``cuda`` and skips itself where no CUDA device is
 present (the kernels have no CPU mode).  The file imports neither JAX nor the
@@ -24,6 +25,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import BucketSpec, OdbConfig
 from repro_torch.data import OnlineDynamicLoader, get_dataset
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import (
     segment_flash_attention_bwd_ref,
@@ -34,7 +36,14 @@ from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves
 from repro_torch.core.layout import global_batch_arrays
-from repro_torch.train.trainer import assemble_model_batch, make_train_step, staged_arrays
+from repro_torch.train.checkpoint import save_checkpoint
+from repro_torch.train.trainer import (
+    Trainer,
+    TrainerConfig,
+    assemble_model_batch,
+    make_train_step,
+    staged_arrays,
+)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -434,3 +443,75 @@ def test_ssm_prefill_decode_on_card_matches_cpu():
             assert prefill_launches == {"ssd_scan": cfg.n_layers}
             assert ssd.LAUNCHES == {"ssd_scan": cfg.n_layers}  # decode launches none
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["smoke", "overflow"])
+def test_ssd_function_grads_on_card(dtype, case):
+    """``ops.ssd_chunked_scan`` under grad on the card: K7 forward (one
+    launch), the plain chunked form's gradient backward.  y against the
+    plain version at the SSD tolerance, and the gradients of x, dt, a, B, C
+    against plain autograd through ``ssd_chunked_ref`` at 2e-5 (fp32) or
+    2e-2 (bf16), all finite.  "overflow" draws a and dt from mamba2's init
+    (dt_bias 0, a over [-1, -16]): exp(acs_i - acs_j) above the diagonal
+    overflows fp32 within a chunk of 256."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if case == "smoke":
+        b, s, h, p, n, chunk = 2, 128, 4, 16, 16, 32
+        x, _, dt, bp, cp, _ = _ssd_inputs(3, b, s, h, p, n, dtype, strided=True, decay=0.02)
+        a = -torch.exp(torch.linspace(0.0, 0.5, h, device="cuda")) * 0.02
+    else:
+        b, s, h, p, n, chunk = 1, 512, 8, 64, 128, 256
+        x, _, _, bp, cp, _ = _ssd_inputs(4, b, s, h, p, n, dtype, strided=True)
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), device="cuda") * 0.5)
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    w = torch.randn(x.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    results = {}
+    for route in ("function", "plain"):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, a, bp, cp)]
+        xx, dd, aa, bb, cc = leaves
+        ssd.reset_launches()
+        if route == "function":
+            y = ops.ssd_chunked_scan(xx, dd, aa, bb, cc, chunk=chunk)
+            assert ssd.LAUNCHES == {"ssd_scan": 1}
+        else:
+            y, _ = ssd_chunked_ref(xx, aa[None, None, :] * dd, dd, bb, cc, chunk)
+        grads = torch.autograd.grad((y.float() * w).sum(), leaves)
+        results[route] = (y, grads)
+    (y, grads), (ry, rgrads) = results["function"], results["plain"]
+    torch.testing.assert_close(y.float(), ry.float(), **SSD_TOL[dtype])
+    for name, g, ref in zip(("x", "dt", "a", "B", "C"), grads, rgrads):
+        assert g.dtype == ref.dtype and bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), ref.float(), atol=TOL[g.dtype], rtol=TOL[g.dtype],
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_bf16_mamba2_checkpoint_round_trip_on_card(tmp_path):
+    """A bf16 mamba2 smoke state on the card (bf16 weights and moments, fp32
+    a_log, dt_bias, d_skip) saved and restored in place by a fresh trainer:
+    every leaf equal, on the card, in its dtype."""
+    _need_card()
+    cfg = dataclasses.replace(get_smoke_config("mamba2_130m"), dtype="bfloat16")
+
+    def trainer():
+        return Trainer(LM(cfg), None, OptimizerConfig(moment_dtype="bfloat16"),
+                       TrainerConfig(checkpoint_dir=str(tmp_path)))
+
+    first = trainer()
+    state, step = first.restore_or_init(torch.Generator("cuda").manual_seed(0))
+    assert step == 0
+    gen = torch.Generator("cuda").manual_seed(1)
+    with torch.no_grad():
+        for t in tree_leaves(state["opt"]["m"]) + tree_leaves(state["opt"]["v"]):
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen))
+        state["opt"]["step"].fill_(5)
+    save_checkpoint(tmp_path, 5, state, cfg=cfg)
+    restored, step = trainer().restore_or_init(torch.Generator("cuda").manual_seed(2))
+    assert step == 5
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+    assert restored["params"]["layers"][0]["mixer"]["in_x"].dtype == torch.bfloat16
+    assert restored["params"]["layers"][0]["mixer"]["a_log"].dtype == torch.float32

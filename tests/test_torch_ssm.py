@@ -25,19 +25,31 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core import BucketSpec as JaxBucketSpec
+from repro.core import OdbConfig as JaxOdbConfig
+from repro.data import OnlineDynamicLoader as JaxLoader
+from repro.data import get_dataset as jax_get_dataset
 from repro.kernels.ref import ssd_scan_ref as jax_ssd_scan_ref
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models import LM as JaxLM
 from repro.models import ssm as jax_ssm
+from repro.models.model import shift_labels as jax_shift_labels
+from repro.train import optimizer as jax_optimizer
+from repro.train.trainer import Trainer as JaxTrainer
+from repro.train.trainer import TrainerConfig as JaxTrainerConfig
 from repro_torch.bridge import params_from_jax, params_to_jax
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import BucketSpec, OdbConfig
+from repro_torch.core.layout import global_batch_arrays
+from repro_torch.data import OnlineDynamicLoader, get_dataset
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.models import LM, ssm
 from repro_torch.models.blocks import stack_plan
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig
-from repro_torch.train.trainer import Trainer
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves, tree_map
+from repro_torch.train.trainer import Trainer, TrainerConfig, assemble_model_batch
 
 SSD_TOL = dict(atol=1e-4, rtol=1e-3)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -430,11 +442,6 @@ def test_slot_scatter_prefill_refuses_ssm(mamba):
         model.prefill_packed(params, caches, tokens, zeros, zeros + 1, zeros)
 
 
-def test_trainer_refuses_ssm():
-    with pytest.raises(NotImplementedError, match="SSM training is not ported"):
-        Trainer(LM(get_smoke_config("mamba2_130m"), device="cpu"), loader=None)
-
-
 @pytest.mark.parametrize("family", ["hybrid", "moe"])
 def test_stack_plan_refuses_hybrid_and_moe(family):
     if family == "hybrid":
@@ -443,3 +450,170 @@ def test_stack_plan_refuses_hybrid_and_moe(family):
         cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"), family="moe", n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         stack_plan(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training: the SSD's gradient, the model's, three trainer steps
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = dict(atol=2e-5, rtol=2e-5)  # tests/test_kernels.py::_tol, fp32
+
+
+def _overflow_inputs():
+    """mamba2's overflow regime at (1, 256, 4, 8, 16), one chunk of 256:
+    a = -(1, 4, 8, 16) and dt in [0.001, 0.1], so Σ a·dt over the chunk
+    reaches a few hundred and exp(acs_i - acs_j) above the diagonal
+    overflows fp32."""
+    rng = np.random.default_rng(11)
+    b, s, h, p, n = 1, 256, 4, 8, 16
+    x = (rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (b, s, h)).astype(np.float32)
+    a = -np.array([1.0, 4.0, 8.0, 16.0], np.float32)
+    bp = (rng.standard_normal((b, s, n)) * 0.4).astype(np.float32)
+    cp = (rng.standard_normal((b, s, n)) * 0.4).astype(np.float32)
+    w = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    return (x, dt, a, bp, cp), w, 256
+
+
+def _jax_ssd_grads(inputs, w, chunk, init=None):
+    def loss(x, dt, a, bp, cp, *state):
+        y, _ = jax_ssm.ssd_chunked(x, dt, a, bp, cp, chunk, *state)
+        return jnp.sum(y.astype(jnp.float32) * w)
+
+    args = [jnp.asarray(v) for v in inputs] + ([jnp.asarray(init)] if init is not None else [])
+    return [np.asarray(g, np.float32) for g in jax.grad(loss, argnums=tuple(range(len(args))))(*args)]
+
+
+def test_ssd_plain_grads_finite_in_overflow_regime():
+    """The gradients of the plain chunked form, where exp(acs_i - acs_j)
+    overflows above the diagonal: all finite and equal to JAX's.  The
+    difference is masked to -inf before the exp, as JAX's ``_segsum`` does;
+    a mask after the exp gave NaN gradients (0 · inf in exp's backward)."""
+    inputs, w, chunk = _overflow_inputs()
+    x, dt, a, bp, cp = (_t(v).requires_grad_() for v in inputs)
+    y, _ = ssd_chunked_ref(x, a[None, None, :] * dt, dt, bp, cp, chunk)
+    ours = torch.autograd.grad((y * _t(w)).sum(), (x, dt, a, bp, cp))
+    for name, g, ref in zip(("x", "dt", "a", "B", "C"), ours, _jax_ssd_grads(inputs, w, chunk)):
+        assert bool(torch.isfinite(g).all()), name
+        np.testing.assert_allclose(_np(g), ref, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["overflow", "sweep-init", "sweep-bf16"])
+def test_ssd_function_grads_match_plain_and_jax(case):
+    """``ops.ssd_chunked_scan`` under grad goes through the autograd
+    Function (its forward the kernel's wrapper, its backward the plain
+    form's gradient, recomputed): gradients of x, dt, a, B, C (and the
+    initial state) equal plain autograd through ``ssd_chunked_ref`` bit for
+    bit, and JAX's at the fp32 gradient tolerance.
+
+    With bf16 x, B and C the port rounds each of their gradients to bf16
+    once, from an fp32 sum.  JAX's bf16 gradient is a bf16 sum of one
+    rounded cotangent per use of the input (the chunk's output and its state
+    update), which cancel: here it is 0.075 from JAX's own fp32 gradient at
+    |g| ≤ 25.  So the bf16 case is held against JAX's fp32 gradient on the
+    same (bf16-valued) inputs and the bf16-rounded cotangent, at 2e-2 for
+    the bf16 leaves and the fp32 tolerance for dt and a."""
+    init = None
+    if case == "overflow":
+        inputs, w, chunk = _overflow_inputs()
+    else:
+        b, s, h, p, n, chunk = SSD_SWEEP[1]
+        dtype = ml_dtypes.bfloat16 if case == "sweep-bf16" else np.float32
+        inputs = _ssd_inputs(9, b, s, h, p, n, dtype, decay=0.02)
+        w = np.random.default_rng(10).standard_normal((b, s, h, p)).astype(np.float32)
+        if case == "sweep-init":
+            init = (np.random.default_rng(2).standard_normal((b, h, p, n)) * 0.5).astype(np.float32)
+    grads = {}
+    for route in ("function", "plain"):
+        tensors = [_t(v).requires_grad_() for v in inputs] + (
+            [_t(init).requires_grad_()] if init is not None else [])
+        x, dt, a, bp, cp, *state = tensors
+        if route == "function":
+            ssd.reset_launches()
+            y = ops.ssd_chunked_scan(x, dt, a, bp, cp, chunk=chunk, initial_state=state[0] if state else None)
+            assert ssd.LAUNCHES["ssd_scan"] == 0  # the CPU takes the plain forward
+        else:
+            y, _ = ssd_chunked_ref(x, a[None, None, :] * dt, dt, bp, cp, chunk, *state)
+        grads[route] = torch.autograd.grad((y.float() * _t(w)).sum(), tensors)
+    if case == "sweep-bf16":
+        theirs = _jax_ssd_grads([np.asarray(v, np.float32) for v in inputs],
+                                np.asarray(w.astype(ml_dtypes.bfloat16), np.float32), chunk)
+    else:
+        theirs = _jax_ssd_grads(inputs, w, chunk, init)
+    for name, g, plain, ref in zip(("x", "dt", "a", "B", "C", "initial state"),
+                                   grads["function"], grads["plain"], theirs):
+        assert g.dtype == plain.dtype and torch.equal(g, plain), name
+        assert bool(torch.isfinite(g).all()), name
+        tol = BF16_TOL if g.dtype == torch.bfloat16 else GRAD_TOL
+        np.testing.assert_allclose(_np(g), ref, err_msg=name, **tol)
+
+
+def _loaders(layout: str):
+    """The port's and the JAX package's loaders over the same short samples
+    (64-512 tokens), two ranks at l_max 512, the mamba2 smoke vocabulary."""
+    kw = dict(config=dict(l_max=512, buffer_size=64, prefetch_factor=16, num_workers=4),
+              bucket=dict(min_len=128, max_len=16384, max_count=1024))
+    ours = OnlineDynamicLoader(get_dataset("uniform_narrow", scale=0.05), 2, OdbConfig(**kw["config"]),
+                               bucket_spec=BucketSpec(**kw["bucket"]), layout=layout, vocab_size=512)
+    theirs = JaxLoader(jax_get_dataset("uniform_narrow", scale=0.05), 2, JaxOdbConfig(**kw["config"]),
+                       bucket_spec=JaxBucketSpec(**kw["bucket"]), layout=layout, vocab_size=512)
+    return ours, theirs
+
+
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+def test_ssm_loss_sums_and_grads_match_jax(mamba, layout):
+    """Gradients of the mean loss of ``loss_sums`` on the mamba2 smoke
+    config from JAX ``LM.init`` weights, every leaf against JAX at the fp32
+    tolerance (the mean, as test_torch_train.py's attention test: the sum's
+    fp32 order noise exceeds 2e-5).  On the packed layout the SSM ignores
+    the segments in both packages: state flows across packed samples, and
+    only the shifted labels mask cross-sample targets."""
+    jcfg, jmodel, jparams, cfg, model, params = mamba
+    loader, _ = _loaders(layout)
+    step = next(iter(loader.epoch(0)))
+    arrays = global_batch_arrays(step.batches, loader.layout)
+    jbatch = {k: jnp.asarray(v) for k, v in arrays.items()}
+    jbatch["labels"], jbatch["loss_mask"] = jax_shift_labels(
+        jbatch["tokens"], jbatch["loss_mask"], segments=jbatch.get("segments"))
+    jp = jax.tree.map(jnp.asarray, jparams)
+    jsum, jtok = jmodel.loss_sums(jp, jbatch)
+    jgrads = jax.grad(lambda q: jnp.divide(*jmodel.loss_sums(q, jbatch)))(jp)
+
+    batch = assemble_model_batch(step, loader.layout, "cpu")
+    assert ("segments" in batch) == (layout == "packed")
+    tsum, ttok = model.loss_sums(params, batch)
+    leaves = tree_leaves(params)
+    flat = dict(zip(map(id, leaves), torch.autograd.grad(tsum / ttok, leaves)))
+    tgrads = params_to_jax(tree_map(lambda q: flat[id(q)], params), cfg)
+
+    assert float(ttok) == float(jtok) > 0
+    np.testing.assert_allclose(float(tsum.detach()), float(jsum), **GRAD_TOL)
+    ours, theirs = jax.tree.leaves_with_path(tgrads), jax.tree.leaves_with_path(jgrads)
+    assert [p for p, _ in ours] == [p for p, _ in theirs]
+    for (path, a), (_, ref) in zip(ours, theirs):
+        assert np.isfinite(a).all(), jax.tree_util.keystr(path)
+        np.testing.assert_allclose(a, np.asarray(ref), err_msg=jax.tree_util.keystr(path), **GRAD_TOL)
+
+
+def test_ssm_trainer_three_steps_match_jax(mamba):
+    """Three ``Trainer`` steps of the mamba2 smoke config (CPU, dense, the
+    default streaming data path) against the JAX trainer from the same
+    weights: per-step loss and grad_norm at rtol 1e-4, as
+    test_torch_train.py's three-step test holds the attention family."""
+    jcfg, _, jparams, cfg, _, _ = mamba
+    opt = dict(total_steps=100)
+    loader, jloader = _loaders("dense")
+    jtrainer = JaxTrainer(JaxLM(jcfg), jloader, jax_optimizer.OptimizerConfig(**opt),
+                          JaxTrainerConfig(log_every=1, max_steps=3))
+    jp = jax.tree.map(jnp.asarray, jparams)
+    jtrainer.train_epoch({"params": jp, "opt": jax_optimizer.init_opt_state(jp, jtrainer.opt_cfg)})
+
+    model = LM(cfg, device="cpu")
+    trainer = Trainer(model, loader, OptimizerConfig(**opt), TrainerConfig(log_every=1, max_steps=3))
+    params = model.load_params(params_from_jax(jparams, cfg, "cpu"))
+    _, n = trainer.train_epoch({"params": params, "opt": init_opt_state(params, trainer.opt_cfg)})
+    assert n == 3 and len(trainer.history) == len(jtrainer.history) == 3
+    for ours, theirs in zip(trainer.history, jtrainer.history):
+        assert ours["tokens"] == theirs["tokens"]
+        np.testing.assert_allclose(ours["loss"], theirs["loss"], rtol=1e-4)
+        np.testing.assert_allclose(ours["grad_norm"], theirs["grad_norm"], rtol=1e-4)
