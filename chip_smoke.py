@@ -107,7 +107,38 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                (the launcher saves every 20, as the JAX launcher does) must
                leave ``latest.json`` at step 20 and a readable
                ``step_00000020.npz``;
-11. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+11. dp_train — Eq. 2 data-parallel training (``train/trainer.dp_step``) on
+               full-width Qwen3-0.6B in bf16 (random weights from seed 0),
+               the dense layout at ``--world 2 --l-max 4096`` on the flash
+               route (K1 forward twice per layer with remat, K2 and K3
+               backward), DP_STEPS steps: the single-process ``Trainer`` on
+               the same steps is the reference; ``dp_step`` at world 1 over
+               NCCL in this process, then at world 2 over gloo in two
+               spawned ranks sharing the card, each on its own rows of every
+               step, exact and then bf16-compressed gradients: per step the
+               ranks gather the step's sha256 through
+               ``ResilientCollective(TorchProcessCollective)`` under a
+               deadline (equal to each other's and to the reference's), loss
+               and grad_norm within DP_RTOL of the reference (the compressed
+               loss within DP_RTOL and its grad_norm within DP_COMP_RTOL of
+               the exact run's), rank 0's parameters
+               ``torch.equal`` to rank 1's after every step, K1 2 x 28, K2
+               and K3 28 launches per step and rank; step time and peak
+               memory per rank;
+12. probes   — the measured block probe (``kernels/autotune.py``) at the
+               first training step's shape on the dense and pruned grids and
+               at the packed run's (2, 4096) on the pruned grid, in bf16
+               (each candidate's median ms over its windows and their spread,
+               the pick, a second call served from the cache); the train
+               launcher with ``--attn-autotune
+               --telemetry DIR --telemetry-port 0`` for PROBE_STEPS steps on
+               ``--layout packed --world 2 --l-max 4096`` (finite losses,
+               metrics.json, trace.json and rounds.json written, a GET
+               /metrics during the run answering 200 with a counted step;
+               K4-K6 counted over the run, the probes included); the train
+               launcher's ``--layout auto --calibration-steps 6`` (both
+               layouts' steps/s and the choice);
+13. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
@@ -119,7 +150,7 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                ``torch.profiler`` (a bf16 call must launch four), its bound share
                and its scratch bytes (peak allocated during one call, less y
                and the final state);
-12. kernels  — one JSON line with every ported kernel.
+14. kernels  — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -205,6 +236,19 @@ SSM_TRAIN_ARGS = ["--arch", "mamba2_130m", "--layout", "dense", "--world", "2", 
 # the launcher's first checkpoint.
 # The ssm_train phase's record_function ranges around a step's phases.
 RANGE_PREFIX = "ssm_train/"
+# The dp_train phase: the train launcher's flags for the data; the dense
+# layout (dp_step takes tokens, labels and loss_mask) on the flash route.
+DP_STEPS = 4
+DP_ARGS = ["--arch", "qwen3_0_6b", "--layout", "dense", "--world", "2", "--l-max", "4096",
+           "--steps", str(DP_STEPS), "--attn-impl", "flash", "--log-every", "1"]
+DP_RTOL = 2e-2  # per-step loss and grad_norm against the single process (bf16 weights)
+DP_COMP_RTOL = 1e-2  # per-step grad_norm of the bf16-compressed reduce against the exact one
+# The probes phase's training run and layout calibration.
+PROBE_STEPS = 3
+PROBE_TRAIN_ARGS = [*TRAIN_ARGS[:TRAIN_ARGS.index("--steps")], "--steps", str(PROBE_STEPS),
+                    "--log-every", "1", "--attn-autotune"]
+LAYOUT_AUTO_ARGS = ["--arch", "qwen3_0_6b", "--world", "2", "--l-max", "4096",
+                    "--layout", "auto", "--calibration-steps", "6"]
 RESUME_LAUNCHER_ARGS = ["--arch", "mamba2_130m", "--smoke", "--layout", "dense", "--world", "2",
                         "--l-max", "512", "--dataset", "uniform_narrow", "--data-scale", "0.05",
                         "--log-every", "20"]
@@ -1474,6 +1518,373 @@ def phase_resume() -> None:
     torch.cuda.empty_cache()
 
 
+# -- dp_train: Eq. 2 data-parallel training over torch.distributed ------------
+
+
+def dp_rank_main(rank: int, world: int, init_file: str, queue, want_digests: list) -> None:
+    """One rank of the dp_train phase's gloo run, spawned: both ranks share
+    the card.  Per step: this rank's rows of the loader's step, a digest of
+    the step gathered through ``ResilientCollective(TorchProcessCollective)``
+    under a deadline, ``dp_step``, and rank 0 holding its parameters
+    ``torch.equal`` to rank 1's (broadcast over the group).  Runs the
+    uncompressed and then the compressed step from the same weights and puts
+    what it saw on ``queue``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        try:
+            for compress in (False, True):
+                out["compressed" if compress else "exact"] = dp_run(rank, world, want_digests,
+                                                                      compress)
+        finally:
+            dist.destroy_process_group()
+    except BaseException as exc:  # reported to the parent, which fails the phase
+        import traceback
+
+        out["error"] = f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"
+    queue.put(out)
+
+
+def dp_run(rank: int, world: int, want_digests: list, compress: bool) -> dict:
+    """DP_STEPS steps of ``dp_step`` on full-width Qwen3-0.6B from seed-0
+    weights over the default process group; K1-K3 counted from 0 just before
+    the steps and read just after.  With more than one rank, rank 0 checks
+    its parameters ``torch.equal`` to rank 1's after every step."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import ResilientCollective, TorchProcessCollective
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.optimizer import init_opt_state, tree_leaves
+    from repro_torch.train.trainer import assemble_model_batch, dp_step
+
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(DP_ARGS))
+    model = trainer.model
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    state = {"params": params, "opt": init_opt_state(params, trainer.opt_cfg)}
+    step, init_error_state = dp_step(model, trainer.opt_cfg, compress_grads=compress)
+    err = init_error_state(params)
+    collective = ResilientCollective(TorchProcessCollective(world), deadline_s=120.0)
+    flat = other = None
+    rec = {"loss": [], "grad_norm": [], "step_s": [], "equal": [], "digests": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    for i, loader_step in enumerate(loader.epoch(0)):
+        if i == DP_STEPS:
+            break
+        digest = step_digest(loader_step, loader.layout)
+        words = np.frombuffer(bytes.fromhex(digest)[:32], dtype=np.int64)
+        gathered = collective.all_gather(rank, words)
+        check(all(np.array_equal(g, words) for g in gathered),
+              f"[dp_train] rank {rank} step {i + 1}: the ranks' step digests differ")
+        check(digest == want_digests[i],
+              f"[dp_train] rank {rank} step {i + 1}: digest {digest} != the single process's")
+        t = time.perf_counter()
+        batch = assemble_model_batch(loader_step, loader.layout, model.device)
+        b = batch["tokens"].shape[0]
+        check(b % world == 0, f"[dp_train] {b} rows do not split over {world} ranks")
+        rows = slice(rank * b // world, (rank + 1) * b // world)
+        batch = {k: batch[k][rows] for k in ("tokens", "labels", "loss_mask")}
+        state, metrics, err = step(state, batch, err)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t)
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"[dp_train] rank {rank} step {i + 1}: loss {loss} grad_norm {gnorm}")
+        rec["loss"].append(loss)
+        rec["grad_norm"].append(gnorm)
+        rec["digests"].append(digest)
+        if world > 1:
+            with torch.no_grad():
+                flat = torch.cat([p.detach().reshape(-1) for p in tree_leaves(state["params"])])
+                if rank == 0:
+                    other = torch.empty_like(flat) if other is None else other
+                    dist.broadcast(other, src=1)
+                    rec["equal"].append(bool(torch.equal(flat, other)))
+                else:
+                    dist.broadcast(flat, src=1)
+            del flat
+    rec["launches"] = dict(fa.LAUNCHES)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["rows"] = [rows.start, rows.stop]
+    rec["layers"] = model.cfg.n_layers
+    return rec
+
+
+def dp_launches_ok(rec: dict, tag: str) -> None:
+    n = rec["layers"] * len(rec["loss"])
+    want = {**dict.fromkeys(rec["launches"], 0), "segment_flash_attention": 2 * n,
+            "segment_flash_attention_bwd_dq": n, "segment_flash_attention_bwd_dkv": n}
+    check(rec["launches"] == want, f"{tag}: launches {rec['launches']} != {want}")
+
+
+def phase_dp_train() -> dict:
+    """Full-width Qwen3-0.6B, dense layout at --world 2 --l-max 4096, the
+    flash route (K1 forward, K2/K3 backward): the single-process ``Trainer``
+    as the reference, then ``dp_step`` at world 1 over NCCL in this process,
+    then at world 2 over gloo in two spawned ranks sharing the card (exact,
+    then bf16-compressed gradients).  Returns the world-2 run's K1-K3
+    launches per rank."""
+    import math
+    import tempfile
+    from queue import Empty
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch import obs
+    from repro_torch.launch import train as train_launcher
+
+    tag = "[dp_train]"
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(DP_ARGS))
+    state = trainer.init_state(torch.Generator(device=trainer.model.device).manual_seed(0))
+    digests = []
+    epoch = loader.epoch
+
+    def digested(*args, **kwargs):
+        for loader_step in epoch(*args, **kwargs):
+            digests.append(step_digest(loader_step, loader.layout))
+            yield loader_step
+
+    loader.epoch = digested
+    trainer.cfg = dataclasses.replace(trainer.cfg, streaming=False)
+    tracer = obs.default_tracer()
+    tracer.reset()
+    tracer.enable()  # the trainer then syncs the card at the end of each step
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = trainer.train_epoch(state)
+    tracer.disable()
+    ref = {"loss": [r["loss"] for r in trainer.history],
+           "grad_norm": [r["grad_norm"] for r in trainer.history],
+           "step_s": [e["dur"] / 1e6 for e in tracer.events() if e["name"] == "train/step"]}
+    check(steps == DP_STEPS and len(ref["loss"]) == DP_STEPS, f"{tag} reference ran {steps} steps")
+    print(f"{tag} single-process Trainer ({' '.join(DP_ARGS)}): losses {ref['loss']}, grad_norm "
+          f"{ref['grad_norm']}, step s {[round(x, 4) for x in ref['step_s']]}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, digests "
+          f"{[d[:12] for d in digests]}")
+    del state, trainer, loader
+    torch.cuda.empty_cache()
+
+    def held(rec, name):
+        for key in ("loss", "grad_norm"):
+            for i, (a, b) in enumerate(zip(rec[key], ref[key])):
+                check(abs(a - b) <= DP_RTOL * abs(b),
+                      f"{tag} {name} step {i + 1}: {key} {a} vs the single process's {b}")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="dp-", dir=ROOT / "build"))
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{work / 'nccl'}", rank=0, world_size=1)
+        try:
+            nccl = dp_run(0, 1, digests, compress=False)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        held(nccl, "world 1 over NCCL")
+        dp_launches_ok(nccl, f"{tag} world 1 over NCCL")
+        print(f"{tag} world 1 over NCCL: losses {nccl['loss']}, grad_norm {nccl['grad_norm']}, step s "
+              f"{[round(s, 4) for s in nccl['step_s']]}, peak {nccl['peak_gib']:.3f} GiB, launches "
+              f"{nccl['launches']}")
+
+        ctx = tmp.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=dp_rank_main, args=(r, 2, str(work / "gloo"), queue, digests))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            results = []
+            while len(results) < len(procs):
+                try:
+                    results.append(queue.get(timeout=5))
+                except Empty:
+                    check(all(p.is_alive() for p in procs),
+                          f"{tag} a rank exited without a result: exit codes "
+                          f"{[p.exitcode for p in procs]}")
+            results.sort(key=lambda r: r["rank"])
+        finally:
+            for p in procs:
+                p.join(60)
+                if p.is_alive():
+                    p.kill()
+        for r in results:
+            check("error" not in r, f"{tag} rank {r['rank']} failed: {r.get('error')}")
+        for r in results:
+            exact, comp = r["exact"], r["compressed"]
+            name = f"world 2 over gloo, rank {r['rank']} (rows {exact['rows']})"
+            held(exact, name)
+            dp_launches_ok(exact, f"{tag} {name}")
+            dp_launches_ok(comp, f"{tag} {name}, compressed")
+            for i, (a, b) in enumerate(zip(comp["loss"], exact["loss"])):
+                check(math.isfinite(a) and abs(a - b) <= DP_RTOL * abs(b),
+                      f"{tag} {name} compressed step {i + 1}: loss {a} vs {b}")
+            for i, (a, b) in enumerate(zip(comp["grad_norm"], exact["grad_norm"])):
+                check(math.isfinite(a) and abs(a - b) <= DP_COMP_RTOL * abs(b),
+                      f"{tag} {name} compressed step {i + 1}: grad_norm {a} vs {b}")
+            print(f"{tag} {name}: losses {exact['loss']}, grad_norm {exact['grad_norm']}, step s "
+                  f"{[round(s, 4) for s in exact['step_s']]}, peak {exact['peak_gib']:.3f} GiB, "
+                  f"launches {exact['launches']}; compressed: losses {comp['loss']}, grad_norm "
+                  f"{comp['grad_norm']}, step s {[round(s, 4) for s in comp['step_s']]}, peak "
+                  f"{comp['peak_gib']:.3f} GiB")
+        equal = results[0]["exact"]["equal"] + results[0]["compressed"]["equal"]
+        check(len(equal) == 2 * DP_STEPS and all(equal),
+              f"{tag} rank 0's parameters torch.equal to rank 1's after each step: {equal}")
+        print(f"{tag} world 2: the ranks' parameters torch.equal after every step "
+              f"({len(equal)} checks); losses and grad_norm within {DP_RTOL} of the single process, "
+              f"the compressed run's grad_norm within {DP_COMP_RTOL} of the exact run's")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    return results[0]["exact"]["launches"]
+
+
+# -- probes: the measured block probe, an --attn-autotune run, --layout auto ---------
+
+
+def scraped_steps(body: str) -> float:
+    """``train_steps_total`` in a Prometheus text body (0 when absent)."""
+    for line in body.splitlines():
+        if line.startswith("train_steps_total "):
+            return float(line.split()[1])
+    return 0.0
+
+
+def phase_probes(train_seg) -> dict:
+    """The block probe at the first training step's shape on both grids and
+    at the packed run's (2, 4096) on the pruned grid, each then serving a
+    second call from the cache; the train launcher with --attn-autotune
+    and telemetry for three steps (one GET /metrics during the run); the
+    train launcher's --layout auto calibration.  Returns the autotune run's
+    K4-K6 launches (the probe's included)."""
+    import math
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+
+    tag = "[probes]"
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="probes-", dir=ROOT / "build"))
+    default_cache = autotune.DEFAULT_CACHE_PATH
+    autotune.DEFAULT_CACHE_PATH = work / "attn_blocks_cuda.json"
+    reg = obs.default_registry()
+    real_scrape, real_run = obs.start_scrape_server, train_launcher.run
+    try:
+        step1 = tuple(train_seg.shape)
+        picks = {}
+        for (rows, cap), grid in ((step1, "dense"), (step1, "pruned"), ((2, 4096), "pruned")):
+            cell = (rows, cap, HEADS, KV_HEADS, D_HEAD)
+            reg.reset()
+            t = time.perf_counter()
+            pick = autotune.autotune_blocks(*cell, dtype=torch.bfloat16, has_segments=True,
+                                            grid=grid)
+            probe_s = time.perf_counter() - t
+            windows = autotune.LAST_PROBE["windows"]
+            check(reg.flat().get("kernel_autotune_cache_misses_total") == 1
+                  and set(windows) == set(autotune.candidate_blocks(cap)),
+                  f"{tag} the probe at {cell} grid {grid} did not run every candidate")
+            again = autotune.autotune_blocks(*cell, dtype=torch.bfloat16, has_segments=True,
+                                             grid=grid)
+            check(again == pick and reg.flat().get("kernel_autotune_cache_hits_total") == 1
+                  and reg.flat().get("kernel_autotune_cache_misses_total") == 1,
+                  f"{tag} the second call at {cell} grid {grid} was not served from the cache")
+            picks[autotune.LAST_PROBE["key"]] = pick
+            print(f"{tag} block probe {autotune.LAST_PROBE['key']}: ms per forward+backward, "
+                  f"median of {autotune.WINDOWS} windows of "
+                  f"{autotune.CALLS_PER_WINDOW} calls [fastest-slowest window] "
+                  + ", ".join(f"{bq}x{bk} {1e3 * autotune.LAST_PROBE['seconds'][(bq, bk)]:.4f} "
+                              f"[{1e3 * min(ts):.4f}-{1e3 * max(ts):.4f}]"
+                              for (bq, bk), ts in sorted(windows.items()))
+                  + f"; pick {pick} (heuristic {autotune.heuristic_blocks(cap)}); probe "
+                  f"{probe_s:.3f}s; second call served from the cache")
+
+        tel = work / "telemetry"
+        seen, done, captured = [], threading.Event(), {}
+
+        def poll(url):
+            while not done.is_set():
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    seen.append((resp.status, resp.read().decode()))
+                if scraped_steps(seen[-1][1]) >= 1:
+                    return
+                done.wait(0.2)
+
+        def scrape(port, *args, **kwargs):
+            srv = real_scrape(port, *args, **kwargs)
+            captured["poller"] = threading.Thread(target=poll, args=(srv.url,), daemon=True)
+            captured["poller"].start()
+            return srv
+
+        def run(trainer, args):
+            captured["trainer"] = trainer
+            return real_run(trainer, args)
+
+        obs.start_scrape_server, train_launcher.run = scrape, run
+        autotune.DEFAULT_CACHE_PATH = work / "run_blocks_cuda.json"  # the run probes its own shapes
+        reg.reset()
+        fa.reset_launches()
+        t = time.perf_counter()
+        train_launcher.main(PROBE_TRAIN_ARGS + ["--telemetry", str(tel), "--telemetry-port", "0"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = dict(fa.LAUNCHES)
+        done.set()
+        captured["poller"].join(30)
+        history = captured["trainer"].history
+        check(len(history) == PROBE_STEPS and all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in history),
+            f"{tag} --attn-autotune run: {history}")
+        files = sorted(p.name for p in tel.iterdir())
+        check({"metrics.json", "trace.json", "rounds.json"} <= set(files), f"{tag} telemetry {files}")
+        check(any(status == 200 and scraped_steps(body) >= 1 for status, body in seen),
+              f"{tag} no GET /metrics during the run returned 200 with train_steps_total >= 1")
+        flat = reg.flat()
+        probe_spans = [round(e["dur"] / 1e6, 3) for e in obs.default_tracer().events()
+                       if e["name"] == "kernels/autotune"]
+        print(f"{tag} --attn-autotune run ({' '.join(PROBE_TRAIN_ARGS)}): losses "
+              f"{[r['loss'] for r in history]}, {run_s:.1f}s with its probes ({probe_spans} s; misses "
+              f"{flat.get('kernel_autotune_cache_misses_total')}, hits "
+              f"{flat.get('kernel_autotune_cache_hits_total')}), schedule "
+              f"{autotune.cached_schedule()}, launches {launches}; telemetry {files}; "
+              f"{len(seen)} GET /metrics during the run, the last {seen[-1][0]} with "
+              f"{seen[-1][1].count(chr(10))} lines")
+        obs.default_tracer().disable()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        args = train_launcher.parser().parse_args(LAYOUT_AUTO_ARGS)
+        _, loader = train_launcher.build(args)
+        print(f"{tag} --layout auto --calibration-steps {args.calibration_steps}: chose "
+              f"{loader.layout.name} in {time.perf_counter() - t:.1f}s")
+    finally:
+        obs.start_scrape_server, train_launcher.run = real_scrape, real_run
+        autotune.DEFAULT_CACHE_PATH = default_cache
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, picks=picks)
+
+
 def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     """(FLOPs, bytes) of the least work of one K7 call with the final state:
     C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
@@ -1616,6 +2027,8 @@ def main() -> None:
     ssm_launches = timed(phase_ssm)
     ssm_train = timed(phase_ssm_train)
     timed(phase_resume)
+    dp_launches = timed(phase_dp_train)
+    probes = timed(phase_probes, train_seg)
     serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = timed(phase_times_training, np.random.default_rng(3), train_seg)
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
@@ -1630,6 +2043,14 @@ def main() -> None:
             launches_note=f"{TRAIN_STEPS} training steps on attn_grid={grid}, the train "
                           "launcher's default data path (streaming with prefetch)",
         )
+        if grid == "dense":
+            entry.update(launches_dp_train=dp_launches[kname],
+                         launches_dp_train_note=f"per rank, {DP_STEPS} dp_step steps at world 2 "
+                                                "over gloo (dense layout, flash route)")
+        else:
+            entry.update(launches_autotune_run=probes["launches"][kname],
+                         launches_autotune_run_note=f"{PROBE_STEPS} training steps with "
+                                                    "--attn-autotune, its block probes included")
         if kname in serve_launches:
             entry.update(
                 launches_serving=serve_launches[kname],

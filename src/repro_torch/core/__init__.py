@@ -12,6 +12,15 @@ from repro_torch.core.layout import (
     make_layout,
     unify_step_shapes,
 )
+from repro_torch.core.loss_scaling import (
+    RankLossStats,
+    ddp_scaled_loss,
+    prescale_factor,
+    prescaled_loss,
+    reference_per_token_loss,
+    sample_weights,
+    token_weights,
+)
 from repro_torch.core.metadata import StepMetadata
 from repro_torch.core.protocol import IDLE, EpochAudit, OdbConfig, run_epoch
 
@@ -26,11 +35,18 @@ __all__ = [
     "OdbConfig",
     "PackedBucketSpec",
     "PackedLayout",
+    "RankLossStats",
     "Sample",
     "StepMetadata",
     "global_batch_arrays",
+    "ddp_scaled_loss",
     "greedy_group",
     "make_layout",
+    "prescale_factor",
+    "prescaled_loss",
+    "reference_per_token_loss",
     "run_epoch",
+    "sample_weights",
+    "token_weights",
     "unify_step_shapes",
 ]

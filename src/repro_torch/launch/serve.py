@@ -7,6 +7,8 @@ Runs on the CUDA card; ``--device cpu`` (with ``--smoke`` for the reduced
 config) runs the same engine on the CPU, where attention takes its plain
 path.  Weights are random, drawn from ``--seed``.  ``--mode static`` runs the
 same steps in drain-before-refill mode for an A/B on the same request trace.
+``--telemetry DIR`` writes metrics.json and trace.json at exit;
+``--telemetry-port`` serves ``GET /metrics`` while the engine runs.
 """
 
 from __future__ import annotations
@@ -17,13 +19,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_0_6b")
     ap.add_argument("--smoke", action="store_true")
@@ -39,7 +42,31 @@ def main() -> None:
     ap.add_argument("--mode", default="continuous", choices=("continuous", "static"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = ap.parse_args()
+    ap.add_argument(
+        "--telemetry", default=None, metavar="DIR",
+        help="enable the obs subsystem and write metrics.json / trace.json "
+             "into DIR at exit (DESIGN.md §13)",
+    )
+    ap.add_argument(
+        "--telemetry-port", type=int, default=None, metavar="PORT",
+        help="serve a live Prometheus scrape endpoint (GET /metrics) from a "
+             "daemon thread while serving (0 = ephemeral port)",
+    )
+    args = ap.parse_args(argv)
+
+    reporter = obs.enable_telemetry(args.telemetry) if args.telemetry else None
+    scrape = None
+    if args.telemetry_port is not None:
+        scrape = obs.start_scrape_server(args.telemetry_port)
+        print(f"[serve] telemetry scrape: {scrape.url}")
+    try:
+        _serve(args, reporter)
+    finally:
+        if scrape is not None:
+            scrape.stop()
+
+
+def _serve(args, reporter) -> None:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -91,6 +118,13 @@ def main() -> None:
         f"buckets {dict(engine.prefill_traces)}"
     )
     print("generated ids[0]:", [int(t) for t in outputs[rids[0]]])
+    if reporter is not None:
+        paths = reporter.write(
+            extra={"arch": cfg.name, "mode": args.mode, "requests": args.requests,
+                   "slots": args.slots}
+        )
+        for kind, path in sorted(paths.items()):
+            print(f"[serve] telemetry {kind}: {path}")
 
 
 if __name__ == "__main__":

@@ -115,20 +115,55 @@ def resolve_flash_grid(cfg, segments) -> str:
     return resolve_grid(cfg.attn_grid, segments)
 
 
-def _flash_blocks(cfg, s: int):
-    """The (block_q, block_kv) schedule for sequence length ``s``."""
-    from repro_torch.kernels.autotune import heuristic_blocks
+def _flash_blocks(cfg, s: int, b: int, dtype, has_segments: bool, grid: str, device):
+    """The (block_q, block_kv) schedule for one shape cell.
+
+    With ``attn_autotune`` the measured probe picks it (``kernels/autotune``),
+    keyed by the grid this call runs.  Under grad mode the forward only reads
+    the cache: a training forward runs inside ``torch.utils.checkpoint``,
+    whose saved-tensor hooks would capture the probe's own graph, so the
+    trainer warms each new shape first (:func:`warm_flash_blocks`) and a miss
+    here raises."""
+    from repro_torch.kernels import autotune
     from repro_torch.kernels.flash_attention import select_block
 
-    if cfg.attn_autotune:
-        raise NotImplementedError("the measured block probe is not ported yet")
     if cfg.attn_block_q or cfg.attn_block_kv:
         # Partial pins are honored: the unset side takes the heuristic width.
         return (
             select_block(s, cfg.attn_block_q or 128),
             select_block(s, cfg.attn_block_kv or 128),
         )
-    return heuristic_blocks(s)
+    if not cfg.attn_autotune:
+        return autotune.heuristic_blocks(s)
+    cell = (b, s, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    kw = dict(dtype=dtype, causal=cfg.causal, has_segments=has_segments, grid=grid)
+    if not torch.is_grad_enabled():
+        return autotune.autotune_blocks(*cell, **kw, device=device)
+    key = autotune.shape_key(*cell, **kw, device=device)
+    blocks = autotune.lookup_blocks(key)
+    if blocks is None:
+        raise RuntimeError(
+            f"attn_autotune: no measured block schedule for {key} inside a recorded "
+            "forward (the probe cannot run inside torch.utils.checkpoint); warm the "
+            "shape first with models.attention.warm_flash_blocks(cfg, batch, dtype) "
+            "outside autograd, as Trainer does before each new step shape"
+        )
+    return blocks
+
+
+def warm_flash_blocks(cfg, batch: dict, dtype) -> None:
+    """Run the measured block probe for the shape of ``batch`` (the model's
+    ``tokens`` and, when packed, ``segments``) outside autograd, so the
+    forward that follows finds its schedule in the cache.  A no-op unless
+    ``attn_autotune`` is set and the batch takes the flash route."""
+    segments = batch.get("segments")
+    if not (cfg.attn_autotune and cfg.uses_attention
+            and use_flash_attention(cfg, segments, None)):
+        return
+    tokens = batch["tokens"]
+    with torch.no_grad():
+        _flash_blocks(cfg, tokens.shape[1], tokens.shape[0], dtype, segments is not None,
+                      resolve_flash_grid(cfg, segments), tokens.device)
 
 
 # ------------------------------------------------------------------------------
@@ -201,7 +236,7 @@ def gqa_attention(
             from repro_torch.kernels.ops import flash_attention
 
             grid = resolve_flash_grid(cfg, segments)
-            bq, bkv = _flash_blocks(cfg, s)
+            bq, bkv = _flash_blocks(cfg, s, b, q.dtype, segments is not None, grid, q.device)
             out = flash_attention(q, k, v, segments, cfg.causal, bq, bkv, grid)
         else:
             out = _block_sdpa(

@@ -84,7 +84,8 @@ class ArchConfig:
     # Flash kernel block schedule; 0 = the largest divisor of S ≤ 128.
     attn_block_q: int = 0
     attn_block_kv: int = 0
-    # Measured per-shape block probe: not ported yet, True is refused.
+    # Measured per-shape block probe (kernels/autotune.py): the schedule of
+    # each shape cell is timed on the device and cached; off = the heuristic.
     attn_autotune: bool = False
 
     # Training and sharding levers of the JAX package, kept so one config

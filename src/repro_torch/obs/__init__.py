@@ -9,8 +9,10 @@ Module-level conveniences operate on the process-wide defaults::
         ...
     obs.instant("dgap/closure", event="join_all_finished")
 
-The default registry is enabled; the default tracer is disabled until a
-caller enables it.
+The default registry is enabled; the default tracer is disabled until
+``--telemetry DIR`` (or a test) switches it on via :func:`enable_telemetry`;
+``--telemetry-port`` serves the registry's Prometheus text while a run goes
+on (:func:`start_scrape_server`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,13 @@ from repro_torch.obs.metrics import (
     NullMetric,
     default_registry,
 )
-from repro_torch.obs.report import ROUND_DURATION_BUCKETS, RoundTimeline
+from repro_torch.obs.report import (
+    ROUND_DURATION_BUCKETS,
+    RoundTimeline,
+    RunReporter,
+    enable_telemetry,
+)
+from repro_torch.obs.scrape import ScrapeServer, start_scrape_server
 from repro_torch.obs.trace import NULL_SPAN, Span, SpanTracer, default_tracer
 
 __all__ = [
@@ -41,15 +49,19 @@ __all__ = [
     "MetricsRegistry",
     "NullMetric",
     "RoundTimeline",
+    "RunReporter",
+    "ScrapeServer",
     "Span",
     "SpanTracer",
     "counter",
     "default_registry",
     "default_tracer",
+    "enable_telemetry",
     "gauge",
     "histogram",
     "instant",
     "span",
+    "start_scrape_server",
 ]
 
 def counter(name: str, help: str = "", unit: str = "", **labels):

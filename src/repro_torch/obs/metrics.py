@@ -6,9 +6,9 @@ into named *families* with optional labels, all owned by a
 :class:`MetricsRegistry`.  The registry is the single source of truth for
 every runtime quantity the repo reports: the admission window, the DGAP
 protocol, the batch-layout engine, the trainer step split, the serving
-engine and the kernels all write here, and the flat view and the
-checkpoint state are *views* of it (the JAX package's Prometheus text
-exposition waits for the port's scrape endpoint).
+engine and the kernels all write here, and ``metrics.json`` / the stdout log
+line / the Prometheus text exposition / the checkpoint state are *views* of
+one snapshot.
 
 Design constraints (the reason this is hand-rolled rather than a client
 library):
@@ -148,7 +148,7 @@ class Histogram:
 
     ``counts[i]`` is the number of observations with
     ``bounds[i-1] < v <= bounds[i]`` (``counts[-1]`` is the +Inf overflow
-    bin); the checkpoint state/exposition re-derive the Prometheus *cumulative*
+    bin); the snapshot/exposition re-derive the Prometheus *cumulative*
     ``le`` form from these.
     """
 
@@ -239,7 +239,7 @@ def _label_suffix(key: tuple[tuple[str, str], ...]) -> str:
 
 
 class MetricsRegistry:
-    """Named metric families; flat view, checkpoint state + Prometheus exposition."""
+    """Named metric families; snapshot-to-dict + Prometheus exposition."""
 
     def __init__(
         self,
@@ -310,6 +310,23 @@ class MetricsRegistry:
         return self._get(name, "histogram", help, unit, buckets, labels)
 
     # -- views -----------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Structured dict of every family (the ``metrics.json`` payload)."""
+        with self._lock:
+            out = {}
+            for name in sorted(self._families):
+                family = self._families[name]
+                out[name] = {
+                    "type": family.kind,
+                    "help": family.help,
+                    "unit": family.unit,
+                    "samples": [
+                        {"labels": dict(key), **family.children[key].sample()}
+                        for key in sorted(family.children)
+                    ],
+                }
+            return out
+
     def flat(self) -> dict[str, float]:
         """Flat ``name{labels} -> value`` view (CI checks, log lines).
 
@@ -328,6 +345,37 @@ class MetricsRegistry:
                     else:
                         out[f"{name}{suffix}"] = metric.value
         return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format 0.0.4 (deterministic order)."""
+        lines: list[str] = []
+        with self._lock:
+            for name in sorted(self._families):
+                family = self._families[name]
+                if family.help:
+                    lines.append(f"# HELP {name} {family.help}")
+                if family.unit:
+                    lines.append(f"# UNIT {name} {family.unit}")
+                lines.append(f"# TYPE {name} {family.kind}")
+                for key in sorted(family.children):
+                    metric = family.children[key]
+                    if family.kind == "histogram":
+                        for le, n in metric.cumulative():
+                            le_key = key + (("le", le),)
+                            lines.append(
+                                f"{name}_bucket{_label_suffix(le_key)} {n}"
+                            )
+                        suffix = _label_suffix(key)
+                        lines.append(
+                            f"{name}_sum{suffix} {format_float(metric.sum)}"
+                        )
+                        lines.append(f"{name}_count{suffix} {metric.count}")
+                    else:
+                        lines.append(
+                            f"{name}{_label_suffix(key)} "
+                            f"{format_float(metric.value)}"
+                        )
+        return "\n".join(lines) + "\n"
 
     # -- checkpoint round-trip (stream/state.py) -------------------------------
     def state(self, prefix: str | tuple[str, ...] = "") -> dict:

@@ -1,12 +1,19 @@
-"""DGAP round audit (DESIGN.md §13.3): the :class:`RoundTimeline` part of the
-JAX package's ``obs/report.py``.
+"""Run reporter: metrics.json / trace.json / DGAP round audit (DESIGN.md §13.3).
 
-:class:`RoundTimeline` is the per-epoch DGAP round audit accumulator the
-streaming executor feeds one entry per protocol round: per-round durations,
-alignment targets, per-rank statuses (from which the straggler census is
-computed), join/non-join closure events and epoch aborts.  It is
-JSON-round-trippable and rides inside stream checkpoints, so a resumed run's
-audit continues the interrupted one instead of restarting at zero.
+Two pieces:
+
+  * :class:`RoundTimeline` — the per-epoch DGAP round audit accumulator the
+    streaming executor feeds one entry per protocol round: per-round
+    durations, alignment targets, per-rank statuses (from which the
+    straggler census is computed), join/non-join closure events and epoch
+    aborts.  It is JSON-round-trippable and rides inside stream
+    checkpoints, so a resumed run's audit continues the interrupted one
+    instead of restarting at zero.
+  * :class:`RunReporter` — serializes the registry snapshot
+    (``metrics.json``), the Prometheus text (``metrics.prom``), the tracer
+    ring (``trace.json``, Chrome trace-event schema) and the round timeline
+    (``rounds.json``) into one telemetry directory; ``launch/train.py
+    --telemetry DIR`` and ``launch/serve.py --telemetry DIR`` drive it.
 
 Straggler semantics: a rank *straggles* in a round when it reports
 "insufficient data" (status 0) while the round still aligned a non-zero
@@ -16,7 +23,13 @@ rule is what keeps the step from stalling on the slow rank.
 
 from __future__ import annotations
 
-__all__ = ["ROUND_DURATION_BUCKETS", "RoundTimeline"]
+import json
+import pathlib
+
+from repro_torch.obs.metrics import MetricsRegistry, default_registry
+from repro_torch.obs.trace import SpanTracer, default_tracer
+
+__all__ = ["ROUND_DURATION_BUCKETS", "RoundTimeline", "RunReporter", "enable_telemetry"]
 
 # Protocol rounds are pure-python bookkeeping: microseconds to low
 # milliseconds on CPU.  Seconds-scale bins catch pathological stalls.
@@ -151,3 +164,79 @@ class RoundTimeline:
         timeline.records = list(state["records"])
         timeline.records_dropped = state.get("records_dropped", 0)
         return timeline
+
+
+class RunReporter:
+    """Serialize one run's telemetry into ``<dir>/{metrics,trace,rounds}.json``."""
+
+    def __init__(
+        self,
+        out_dir,
+        registry: MetricsRegistry | None = None,
+        tracer: SpanTracer | None = None,
+    ) -> None:
+        self.out_dir = pathlib.Path(out_dir)
+        self.registry = registry if registry is not None else default_registry()
+        self.tracer = tracer if tracer is not None else default_tracer()
+
+    def _write_json(self, name: str, payload: dict) -> pathlib.Path:
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        path = self.out_dir / name
+        path.write_text(json.dumps(payload, indent=1, sort_keys=True))
+        return path
+
+    def write_metrics(self, extra: dict | None = None) -> pathlib.Path:
+        """``metrics.json``: the flat view (CI keys) + the full snapshot."""
+        payload = {
+            "flat": self.registry.flat(),
+            "families": self.registry.snapshot(),
+        }
+        if extra:
+            payload["run"] = extra
+        return self._write_json("metrics.json", payload)
+
+    def write_prometheus(self) -> pathlib.Path:
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        path = self.out_dir / "metrics.prom"
+        path.write_text(self.registry.prometheus_text())
+        return path
+
+    def write_trace(self) -> pathlib.Path:
+        return self.tracer.write(self.out_dir / "trace.json")
+
+    def write_rounds(self, round_audit: "RoundTimeline | dict") -> pathlib.Path:
+        if isinstance(round_audit, RoundTimeline):
+            round_audit = round_audit.as_dict()
+        return self._write_json("rounds.json", round_audit)
+
+    def write(
+        self,
+        round_audit: "RoundTimeline | dict | None" = None,
+        extra: dict | None = None,
+    ) -> dict[str, str]:
+        """Emit every artifact; returns name → path written."""
+        paths = {
+            "metrics": str(self.write_metrics(extra)),
+            "prometheus": str(self.write_prometheus()),
+            "trace": str(self.write_trace()),
+        }
+        if round_audit is not None:
+            paths["rounds"] = str(self.write_rounds(round_audit))
+        return paths
+
+
+def enable_telemetry(
+    out_dir,
+    registry: MetricsRegistry | None = None,
+    tracer: SpanTracer | None = None,
+) -> RunReporter:
+    """Switch the (default) registry + tracer on and return a reporter.
+
+    The one call a launcher makes for ``--telemetry DIR`` — before building
+    the instrumented objects, so construction-time cached instruments bind
+    to live metrics rather than the disabled-mode null sink.
+    """
+    reporter = RunReporter(out_dir, registry=registry, tracer=tracer)
+    reporter.registry.enable()
+    reporter.tracer.enable()
+    return reporter

@@ -26,7 +26,9 @@ exactly what lexically nested ``with tracer.span(...)`` blocks produce.
 from __future__ import annotations
 
 import collections
+import json
 import os
+import pathlib
 import threading
 import time
 
@@ -177,6 +179,12 @@ class SpanTracer:
             "displayTimeUnit": "ms",
             "otherData": {"dropped_events": self.dropped},
         }
+
+    def write(self, path) -> pathlib.Path:
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(self.export(), indent=1))
+        return path
 
     def reset(self) -> None:
         with self._lock:

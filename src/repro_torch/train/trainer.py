@@ -19,8 +19,12 @@ With ``checkpoint_dir`` set, ``train_epoch`` writes a model checkpoint every
 ``checkpoint_every`` steps (``train/checkpoint.py``, the JAX package's
 format) and :meth:`Trainer.restore_or_init` resumes from the latest one, as
 in the JAX package: the step counter and the optimizer state resume, and the
-epoch's data is replayed from its start.  Not ported yet: the per-rank
-``dp_shardmap_step``.
+epoch's data is replayed from its start.
+
+:func:`dp_step` is the per-rank data-parallel step (one process per rank
+over ``torch.distributed``), the counterpart of the JAX package's
+``dp_shardmap_step``: Eq. 2 prescaling of each rank's loss, one gradient
+all-reduce, optionally bf16 with error feedback.
 """
 
 from __future__ import annotations
@@ -33,9 +37,16 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.layout import BatchLayout, global_batch_arrays
+from repro_torch.core.loss_scaling import prescaled_loss
 from repro_torch.data.loader import LoaderStep, OnlineDynamicLoader, StagedArrays
+from repro_torch.models.attention import warm_flash_blocks
 from repro_torch.models.model import LM, shift_labels
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.compression import (
+    all_reduce_compressed,
+    all_reduce_sum,
+    init_error_state,
+)
 from repro_torch.train.optimizer import (
     OptimizerConfig,
     adamw_update,
@@ -48,6 +59,7 @@ __all__ = [
     "Trainer",
     "TrainerConfig",
     "assemble_model_batch",
+    "dp_step",
     "make_train_step",
     "resolve_attn_grid",
     "resolve_attn_impl",
@@ -79,25 +91,102 @@ def resolve_attn_grid(cfg, *, packed: bool, device: torch.device) -> str:
     return "pruned" if device.type == "cuda" else "dense"
 
 
+def _warmer(model: LM):
+    """Warm the measured block schedule once per new step shape, outside
+    autograd, so the checkpointed forward finds it in the cache."""
+    seen = set()
+
+    def warm(batch):
+        shape = (tuple(batch["tokens"].shape), "segments" in batch)
+        if model.cfg.attn_autotune and shape not in seen:
+            warm_flash_blocks(model.cfg, batch, model.dtype)
+            seen.add(shape)
+
+    return warm
+
+
+def _grads(loss, params):
+    leaves = tree_leaves(params)
+    grad_of = {id(p): g for p, g in zip(leaves, torch.autograd.grad(loss, leaves))}
+    return tree_map(lambda p: grad_of[id(p)], params)
+
+
 def make_train_step(model: LM, opt_cfg: OptimizerConfig):
     """(state, batch) -> (state, metrics) — THE train step.
 
     Loss normalization: the global masked per-token mean.  The parameters
     and moments in ``state`` are updated in place.
     """
+    warm = _warmer(model)
 
     def train_step(state, batch):
+        warm(batch)
         params = state["params"]
         loss_sum, tokens = model.loss_sums(params, batch)
         loss = loss_sum / torch.clamp(tokens, min=1.0)
-        leaves = tree_leaves(params)
-        flat = torch.autograd.grad(loss, leaves)
-        grad_of = {id(p): g for p, g in zip(leaves, flat)}
-        grads = tree_map(lambda p: grad_of[id(p)], params)
-        opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
+        opt_metrics = adamw_update(params, _grads(loss, params), state["opt"], opt_cfg)
         return state, {"loss": loss.detach(), "tokens": tokens, **opt_metrics}
 
     return train_step
+
+
+def dp_step(
+    model: LM,
+    opt_cfg: OptimizerConfig,
+    *,
+    loss_mode: str = "exact_token",
+    compress_grads: bool = False,
+):
+    """Per-rank data-parallel step over the default process group (one
+    process per rank).
+
+    Returns ``(step, init_error_state)``; ``step(state, batch, err) ->
+    (state, metrics, err)``.  Every process holds the replicated state and
+    its own contiguous block of the global batch's rows (the JAX step's
+    ``P("data", None)``), as the three arrays ``tokens``, ``labels`` and
+    ``loss_mask``.  Token and sample counts are summed over the ranks, each
+    rank prescales its loss sum by Eq. 2 (:func:`prescaled_loss`), and the
+    reported loss is the mean of the prescaled losses over the ranks.
+    Backward runs on this rank's term ``scaled_r / W`` alone, then one
+    all-reduce sums the gradients (in fp32, or bf16 with error feedback when
+    ``compress_grads``), so the reduced gradient is the gradient of the
+    global per-token mean, the loss the step reports; the in-place AdamW
+    follows.  ``metrics["tokens"]`` is the global token count.
+
+    The JAX ``dp_shardmap_step`` differentiates ``psum(scaled) / W`` inside
+    ``shard_map(check_vma=False)``, where the transpose of ``psum`` is
+    ``psum``, and then sums the gradients again: its gradient is ``W`` times
+    the gradient of the loss it reports.  The port follows the intent the
+    JAX code states (local gradients hold ∂(scaled_r / W)), not that factor.
+    """
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    warm = _warmer(model)
+
+    def step(state, batch, err):
+        warm(batch)
+        params = state["params"]
+        loss_sum, tokens = model.loss_sums(params, batch)
+        samples = batch["loss_mask"].float().amax(dim=1).sum()
+        counts = torch.stack([tokens.detach().float(), samples])
+        dist.all_reduce(counts)
+        global_tokens = counts[0].clone()
+        t_tok, n_tot = counts.clamp(min=1.0).unbind()
+        scaled = prescaled_loss(loss_sum, tokens, t_tok, world, loss_mode,
+                                local_samples=samples, global_samples=n_tot)
+        grads = _grads(scaled / world, params)
+        loss = scaled.detach().clone()
+        loss_work = dist.all_reduce(loss, async_op=True)
+        if compress_grads:
+            grads, err = all_reduce_compressed(grads, err)
+        else:
+            grads = all_reduce_sum(grads)
+        opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
+        loss_work.wait()
+        return state, {"loss": loss / world, "tokens": global_tokens, **opt_metrics}, err
+
+    return step, init_error_state
 
 
 def _timed_phase(span_name: str, metric: str, help: str, fn: Callable):

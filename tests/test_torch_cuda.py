@@ -515,3 +515,99 @@ def test_bf16_mamba2_checkpoint_round_trip_on_card(tmp_path):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
     assert restored["params"]["layers"][0]["mixer"]["in_x"].dtype == torch.bfloat16
     assert restored["params"]["layers"][0]["mixer"]["a_log"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["dense", "pruned"])
+def test_autotune_probe_on_card(grid, tmp_path):
+    """The measured block probe on the card (bf16, packed rows): every
+    candidate runs, the pick is one of them, the second call is a hit."""
+    _need_card()
+    from repro_torch import obs
+    from repro_torch.kernels import autotune
+
+    cache = tmp_path / "blocks.json"
+    reg = obs.default_registry()
+    reg.reset()
+    picked = autotune.autotune_blocks(2, 1024, 16, 8, 128, dtype=torch.bfloat16,
+                                      has_segments=True, cache_path=cache, grid=grid)
+    seconds = autotune.LAST_PROBE["seconds"]
+    assert set(seconds) == set(autotune.candidate_blocks(1024)) and picked in seconds
+    assert all(s > 0 for s in seconds.values())
+    assert all(len(ts) == autotune.WINDOWS for ts in autotune.LAST_PROBE["windows"].values())
+    assert autotune.LAST_PROBE["key"].startswith("gpu/b2s1024h16kv8d128/bfloat16/")
+    assert autotune.autotune_blocks(2, 1024, 16, 8, 128, dtype=torch.bfloat16,
+                                    has_segments=True, cache_path=cache, grid=grid) == picked
+    assert reg.flat()["kernel_autotune_cache_hits_total"] == 1
+    assert reg.flat()["kernel_autotune_cache_misses_total"] == 1
+
+
+@pytest.mark.cuda
+def test_gloo_all_reduce_of_cuda_tensors(tmp_path):
+    """Two gloo ranks sharing the card reduce CUDA tensors in place (the
+    dp_step's transport when one card holds both ranks)."""
+    _need_card()
+    import multiprocessing as mp
+    import pickle
+
+    import _torch_rank_worker
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_torch_rank_worker.cuda_reduce_rank,
+                         args=(r, 2, str(tmp_path / "pg"), str(tmp_path / f"{r}.pkl")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(120)
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        with open(tmp_path / f"{r}.pkl", "rb") as f:
+            seen = pickle.load(f)
+        for dtype in ("torch.float32", "torch.bfloat16"):
+            assert seen[dtype] == ("cuda", 3.0, 3.0)
+        assert seen["gather"] == [[0, 1], [1, 2]]
+
+
+@pytest.mark.cuda
+def test_dp_step_world1_over_nccl_matches_train_step(tmp_path):
+    """dp_step at world 1 over NCCL on the smoke model in fp32 equals the
+    single-process train step (loss, grad_norm, parameters); the
+    TorchProcessCollective gathers on the card."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import TorchProcessCollective
+    from repro_torch.models.model import shift_labels
+    from repro_torch.train.trainer import dp_step
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"), attn_impl="flash")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)).cuda()
+    mask = torch.ones(2, 256, device="cuda")
+    mask[1, 100:] = 0
+    labels, mask = shift_labels(tokens, mask)
+    batch = {"tokens": tokens, "labels": labels, "loss_mask": mask}
+    opt_cfg = OptimizerConfig()
+    runs = []
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        gathered = TorchProcessCollective(1).all_gather(0, [3, 4])
+        assert [g.tolist() for g in gathered] == [[3, 4]]
+        for make in ("train_step", "dp_step"):
+            model = LM(cfg, device="cuda")
+            params = model.init(torch.Generator(device="cuda").manual_seed(0))
+            state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+            if make == "dp_step":
+                step, init_err = dp_step(model, opt_cfg)
+                state, metrics, _ = step(state, batch, init_err(params))
+            else:
+                state, metrics = make_train_step(model, opt_cfg)(state, batch)
+            runs.append((metrics, tree_leaves(state["params"])))
+    finally:
+        dist.destroy_process_group()
+    (m_ref, p_ref), (m_dp, p_dp) = runs
+    for key in ("loss", "grad_norm"):
+        assert float(m_dp[key]) == pytest.approx(float(m_ref[key]), rel=2e-5, abs=2e-5)
+    for a, b in zip(p_dp, p_ref):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
