@@ -138,7 +138,30 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                K4-K6 counted over the run, the probes included); the train
                launcher's ``--layout auto --calibration-steps 6`` (both
                layouts' steps/s and the choice);
-13. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+13. chaos    — (a) ``repro_torch.chaos.run_all`` at seeds 0 and 1, every
+               rail held (terminated, within the round bound, ok; the drop
+               aborted; bit-exact but for poison_sample, which is accounted);
+               (b) the training run's cell with the JAX harness's buffer 4
+               and prefetch 4, four steps taken as the trainer takes them
+               (``streaming_epoch(prefetch=True, device_put=True,
+               fault_injector=...)`` -> ``assemble_model_batch`` -> the
+               trainer's step) from seed-0 weights: fault-free twice, then
+               under a transient ``gather_delay`` (every step's
+               ``stream_digest``, host-array sha256, loss and grad_norm equal
+               to the fault-free run's: bitwise when the pair is bitwise,
+               else within its spread), a ``gather_drop`` that aborts with
+               steps staged on the card and resumes from the abort's
+               checkpoint (the same standard, no step lost or taken twice),
+               and poison samples under a quarantine budget (the epoch
+               ends, fully accounted, the plan's identities quarantined,
+               finite losses); each run's rounds, wall and recovery cost;
+               (c) every comparator's schedule (Standard, Sorted, Packing,
+               GMT, BMT, HFG, ODB) for the run's data at world 2, the
+               benchmark's sizes cut to one card, and one full-width step
+               on Standard's first step (dense, K1-K3) and GMT's (packed,
+               K4-K6); (d) the tile census of the first training step
+               against the liveness tables built on the card;
+14. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
@@ -150,7 +173,7 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                ``torch.profiler`` (a bf16 call must launch four), its bound share
                and its scratch bytes (peak allocated during one call, less y
                and the final state);
-14. kernels  — one JSON line with every ported kernel.
+15. kernels  — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -252,6 +275,24 @@ LAYOUT_AUTO_ARGS = ["--arch", "qwen3_0_6b", "--world", "2", "--l-max", "4096",
 RESUME_LAUNCHER_ARGS = ["--arch", "mamba2_130m", "--smoke", "--layout", "dense", "--world", "2",
                         "--l-max", "512", "--dataset", "uniform_narrow", "--data-scale", "0.05",
                         "--log-every", "20"]
+# The chaos phase.  (a) runs the harness matrix at these seeds.  (b) trains
+# the training run's cell under faults; the launcher's --buffer 256
+# --prefetch 64 admit the whole epoch in two gather rounds, so (b) takes the
+# JAX harness's buffer 4 and prefetch 4 (a gather every three or four steps)
+# for a round to land among the trained steps.
+CHAOS_SEEDS = (0, 1)
+CHAOS_TRAIN_ARGS = [*TRAIN_ARGS, "--buffer", "4", "--prefetch", "4"]
+CHAOS_DEADLINE_S = 0.05  # the harness's round deadline; injected delays are simulated
+CHAOS_MAX_DELAY_S = 1.0  # gather_delay at rate 1: 95 % of (round, rank) sites miss the deadline
+CHAOS_POISON = 3
+# (c): benchmarks/throughput.py's SELECTED[("ultrachat", "2b")], and the cut
+# to one card at full width: each value lowered until the schedule's largest
+# step lays out in at most CELL_SLOTS token slots (the training run's largest
+# step, 2 x 6144), on the layout the method trains with (dense for the
+# fixed batch sizes, packed for the token budgets and ODB); lmax is the cell's.
+COMPARATOR_SELECTED = dict(std_bs=8, sorted_bs=16, lmax=16384, budget=16384, hfg_bs=8)
+COMPARATOR_CUT = dict(std_bs=1, sorted_bs=1, lmax=4096, budget=6144, hfg_bs=1)
+CELL_SLOTS = 2 * 6144
 
 
 def check(ok: bool, what: str) -> None:
@@ -1885,6 +1926,416 @@ def phase_probes(train_seg) -> dict:
     return dict(launches=launches, picks=picks)
 
 
+# -- chaos: the harness matrix, faults through training, comparators, census -------
+
+
+def chaos_matrix() -> None:
+    """(a) ``repro_torch.chaos.run_all`` at CHAOS_SEEDS, every rail held."""
+    from repro_torch.chaos import run_all
+
+    for seed in CHAOS_SEEDS:
+        for kind, res in run_all(seed).items():
+            what = f"[chaos] (a) seed {seed} {kind}: {res.as_dict()}"
+            check(res.terminated and res.within_bound and res.ok, what)
+            if kind == "gather_drop":
+                check(res.details["aborted"], what)
+            check(not res.bit_exact and res.accounted if kind == "poison_sample" else res.bit_exact,
+                  what)
+            print(f"[chaos] (a) seed {seed} {kind}: rounds {res.rounds} bound {res.bound} "
+                  f"wall {res.wall_s:.4f}s bit_exact {res.bit_exact} accounted {res.accounted} "
+                  f"details {res.details}")
+
+
+def chaos_run(trainer, loader, name: str, config, *, injector=None, poison=None) -> dict:
+    """TRAIN_STEPS steps from seed-0 weights and zero AdamW moments, taken as
+    the trainer takes them: ``loader.streaming_epoch(prefetch=True,
+    device_put=True, fault_injector=...)`` -> ``assemble_model_batch`` -> the
+    trainer's step.  An ``EpochAborted`` continues from its checkpoint
+    (through JSON) with no injector.  Each step's ``stream_digest`` and host
+    arrays' sha256 are taken as the step reaches the consumer."""
+    import contextlib
+    import math
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.chaos import poison_samples, stream_digest
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.stream import EpochAborted, StreamCheckpoint
+    from repro_torch.train.trainer import assemble_model_batch
+
+    loader.config = config
+    device = trainer.model.device
+    state = trainer.init_state(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    obs.default_registry().reset()
+    fa.reset_launches()
+    rec = dict(loss=[], grad_norm=[], groups=[], stream=[], host=[], aborted=False,
+               resume_step=None)
+    resume = None
+    t0 = time.perf_counter()
+    with poison_samples(poison) if poison is not None else contextlib.nullcontext():
+        while len(rec["loss"]) < TRAIN_STEPS:
+            steps = loader.streaming_epoch(
+                prefetch=True, device_put=True, device=device, resume_from=resume,
+                fault_injector=injector if resume is None else None)
+            try:
+                for loader_step in steps:
+                    batch = assemble_model_batch(loader_step, loader.layout, device)
+                    state, metrics = trainer._train_step(state, batch)
+                    rec["loss"].append(float(metrics["loss"]))
+                    rec["grad_norm"].append(float(metrics["grad_norm"]))
+                    rec["groups"].append(loader_step.groups)
+                    rec["stream"].append(stream_digest([loader_step.groups]))
+                    rec["host"].append(step_digest(loader_step, loader.layout))
+                    if len(rec["loss"]) == TRAIN_STEPS:
+                        break
+                else:
+                    check(False, f"[chaos] (b) {name}: the epoch ended after {len(rec['loss'])} steps")
+            except EpochAborted as exc:
+                check(resume is None, f"[chaos] (b) {name}: aborted after its resume")
+                rec["aborted"] = True
+                rec["resume_step"] = loader.last_executor.runner.steps_delivered
+                resume = StreamCheckpoint.from_json(exc.checkpoint().to_json())
+            finally:
+                steps.close()  # the consumer's boundary; drains the epoch's schedule
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(fa.LAUNCHES)
+    n = trainer.model.cfg.n_layers * TRAIN_STEPS
+    want = {**dict.fromkeys(fa.LAUNCHES, 0), "segment_flash_attention_pruned": 2 * n,
+            "segment_flash_attention_bwd_pruned_dq": n, "segment_flash_attention_bwd_pruned_dkv": n}
+    check(rec["launches"] == want, f"[chaos] (b) {name}: launches {rec['launches']} != {want}")
+    rec["rounds"] = loader.last_executor.runner.rounds
+    rec["audit"] = loader.last_audit
+    rec["quarantined"] = set(loader.last_executor.runner.quarantined_ids)
+    rec["flat"] = obs.default_registry().flat()
+    rec["combined"] = stream_digest(rec.pop("groups"))
+    for i, (loss, gn) in enumerate(zip(rec["loss"], rec["grad_norm"])):
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"[chaos] (b) {name} step {i + 1}: loss {loss} grad_norm {gn}")
+    check(len(rec["loss"]) == TRAIN_STEPS, f"[chaos] (b) {name}: {len(rec['loss'])} steps")
+    print(f"[chaos] (b) {name}: {len(rec['loss'])} steps, rounds {rec['rounds']}, wall "
+          f"{rec['wall_s']:.3f}s (the epoch's drain after the last step included), K4/K5/K6 "
+          f"launches {want['segment_flash_attention_pruned']}/{n}/{n}, losses "
+          f"{rec['loss']}, grad_norm {rec['grad_norm']}, stream digests "
+          f"{[d[:12] for d in rec['stream']]}")
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def chaos_drop_round(loader, config) -> int:
+    """A primary gather round that the producer reaches while it builds step
+    3 or 4, found by a host-only pass over the same epoch: the drop then
+    fires with steps staged on the card ahead of the consumer."""
+    seen: dict[int, int] = {}
+
+    class Recorder:
+        def on_gather(self, round_index, attempt, rank, tag):
+            if tag == "primary":
+                seen.setdefault(round_index, loader.last_executor.runner.steps_delivered)
+
+    loader.config = config
+    steps = loader.streaming_epoch(fault_injector=Recorder(), finalize_audit=False)
+    try:
+        for i, _ in enumerate(steps):
+            if i + 1 == TRAIN_STEPS:
+                break
+    finally:
+        steps.close()
+    late = [r for r, delivered in sorted(seen.items()) if delivered in (2, 3)]
+    check(bool(late), f"[chaos] (b) no gather round while building step 3 or 4: {seen}")
+    print(f"[chaos] (b) primary rounds -> steps delivered before them: {seen}; drop at round "
+          f"{late[0]}")
+    return late[0]
+
+
+def chaos_training(trainer, loader) -> dict:
+    """(b) The fault-free run twice, then a transient gather_delay, a hard
+    gather_drop (abort and resume) and poison samples, all on the training
+    run's cell with CHAOS_TRAIN_ARGS' round structure.  Returns K4-K6's
+    launches in one run."""
+    import dataclasses as dc
+
+    from repro_torch.chaos import ChaosPlan, CollectiveInjector
+
+    tag = "[chaos] (b)"
+    base = dc.replace(loader.config, round_deadline_s=CHAOS_DEADLINE_S, round_retries=2)
+    layout_step = loader._layout_step
+
+    def with_groups(index, step):  # the groups travel with the step, for stream_digest
+        built = layout_step(index, step)
+        built.groups = step
+        return built
+
+    loader._layout_step = with_groups
+    try:
+        ff = [chaos_run(trainer, loader, f"fault-free {i + 1}", base) for i in range(2)]
+        launches = {k: v for k, v in ff[0]["launches"].items() if "pruned" in k}
+        # The standard for the fault runs: bitwise when the pair is bitwise,
+        # else within the pair's largest absolute difference of that metric.
+        bitwise = all(ff[0][k] == ff[1][k] for k in ("loss", "grad_norm"))
+        spread = {k: max(abs(a - b) for a, b in zip(ff[0][k], ff[1][k]))
+                  for k in ("loss", "grad_norm")}
+        check(ff[0]["stream"] == ff[1]["stream"] and ff[0]["host"] == ff[1]["host"],
+              f"{tag} the fault-free pair delivered different steps")
+        print(f"{tag} the fault-free pair: losses and grad_norm bitwise equal: {bitwise} "
+              f"(largest absolute difference {spread})")
+
+        def cost(rec):  # against the second fault-free run: the first carries the warm-up
+            return (f"{rec['wall_s'] / ff[1]['wall_s']:.3f}x the fault-free run's wall "
+                    f"({rec['wall_s']:.3f} / {ff[1]['wall_s']:.3f} s)")
+
+        def held(rec, name):
+            check(rec["stream"] == ff[0]["stream"] and rec["host"] == ff[0]["host"],
+                  f"{tag} {name}: step digests {rec['stream']} != {ff[0]['stream']}")
+            for k in ("loss", "grad_norm"):
+                for i, (a, b) in enumerate(zip(rec[k], ff[0][k])):
+                    check(a == b if bitwise else abs(a - b) <= spread[k],
+                          f"{tag} {name} step {i + 1}: {k} {a} vs the fault-free {b} "
+                          f"({'bitwise' if bitwise else f'spread {spread[k]}'})")
+
+        plan = ChaosPlan(0, loader.world_size)
+        delay = CollectiveInjector(plan, kind="gather_delay", rate=1.0, max_delay_s=CHAOS_MAX_DELAY_S)
+        rec = chaos_run(trainer, loader, "gather_delay", base, injector=delay)
+        retries = rec["flat"].get("odb_fault_retries_total", 0)
+        recovered = rec["flat"].get("odb_fault_recovered_total", 0)
+        check(delay.injected > 0 and retries > 0 and recovered > 0 and not rec["aborted"],
+              f"{tag} gather_delay: injected {delay.injected} retries {retries} recovered "
+              f"{recovered} aborted {rec['aborted']}")
+        held(rec, "gather_delay")
+        print(f"{tag} gather_delay (deadline {CHAOS_DEADLINE_S}s, delays up to {CHAOS_MAX_DELAY_S}s "
+              f"at rate 1, attempt 0 only): over the epoch, its drain included, {delay.injected} "
+              f"delays injected, {retries:.0f} retries, {recovered:.0f} gathers recovered; digests "
+              f"and losses "
+              f"{'bitwise equal to' if bitwise else 'within the spread of'} the fault-free run's; "
+              f"recovery cost {cost(rec)}")
+
+        drop_cfg = dc.replace(base, round_retries=1)
+        at_round = chaos_drop_round(loader, drop_cfg)
+
+        class Watched(CollectiveInjector):
+            """The drop, and the steps staged on the card ahead of the
+            consumer when it first fires."""
+
+            staged = None
+
+            def on_gather(self, *site):
+                out = super().on_gather(*site)
+                if out == "drop" and self.staged is None:
+                    stats = loader.last_prefetch_stats
+                    self.staged = stats.produced - stats.consumed
+                return out
+
+        drop = Watched(plan, kind="gather_drop", at_round=at_round)
+        rec = chaos_run(trainer, loader, "gather_drop", drop_cfg, injector=drop)
+        check(rec["aborted"] and drop.staged is not None and drop.staged >= 1,
+              f"{tag} gather_drop: aborted {rec['aborted']}, staged at the drop {drop.staged}")
+        check(rec["audit"].coverage_accounted, f"{tag} gather_drop: audit {rec['audit']}")
+        held(rec, "gather_drop")
+        check(rec["combined"] == ff[0]["combined"], f"{tag} gather_drop: combined digest")
+        print(f"{tag} gather_drop at round {at_round} (retries 1): EpochAborted with "
+              f"{drop.staged} step(s) staged on the card ahead of the consumer, resumed from "
+              f"exc.checkpoint() after step {rec['resume_step']}; combined stream "
+              f"digest {rec['combined'][:16]} equal to the fault-free run's, no step lost or "
+              f"taken twice; losses {'bitwise equal' if bitwise else 'within the spread'}; "
+              f"recovery cost {cost(rec)}")
+
+        n = len(loader.dataset.records(loader.seed))
+        poison = plan.poison_identities(n, count=CHAOS_POISON)
+        rec = chaos_run(trainer, loader, "poison_sample",
+                        dc.replace(base, max_quarantine=CHAOS_POISON), poison=poison)
+        audit = rec["audit"]
+        check(audit.coverage_accounted and rec["quarantined"] == set(poison)
+              and audit.quarantined_identities == len(poison),
+              f"{tag} poison_sample: quarantined {sorted(rec['quarantined'])} vs the plan's "
+              f"{sorted(poison)}, audit {audit}")
+        print(f"{tag} poison_sample ({sorted(poison)} of {n} records, max_quarantine "
+              f"{CHAOS_POISON}): the epoch ran to its end, coverage_accounted, quarantined "
+              f"identities equal the plan's; every loss finite; wall {cost(rec)}")
+    finally:
+        del loader._layout_step
+        loader.config = base
+    return launches
+
+
+def step_slots(layout, step) -> int:
+    return sum(b.tokens.size for b in layout.build_step(step))
+
+
+def chaos_comparators(trainer, loader) -> dict:
+    """(c) Every comparator's schedule for the training run's data at world
+    2, the cut sizes checked against CELL_SLOTS; one full-width step on the
+    first step of Standard (dense layout, flash pinned: K1-K3) and of GMT
+    (packed: K4-K6).  Returns K1-K3's launches in the Standard step."""
+    import dataclasses as dc
+    import math
+
+    import torch
+
+    from repro_torch.core import OdbConfig
+    from repro_torch.core.layout import make_layout
+    from repro_torch.core.metadata import step_metadata
+    from repro_torch.data import (
+        LengthCache, LoaderStep, bmt_schedule, gmt_schedule, hfg_schedule, odb_schedule,
+        packing_schedule, sorted_schedule, standard_schedule,
+    )
+    from repro_torch.data.baselines import packed_area
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.trainer import assemble_model_batch, make_train_step
+
+    tag = "[chaos] (c)"
+    world, cut = loader.world_size, COMPARATOR_CUT
+    print(f"{tag} SELECTED[ultrachat, 2b] {COMPARATOR_SELECTED} cut to {cut} (largest step at "
+          f"most {CELL_SLOTS} token slots on the method's layout), world {world}")
+    ds = loader.dataset
+    t = time.perf_counter()
+    lengths = ds.lengths(seed=loader.seed)
+    lengths_s = time.perf_counter() - t
+    cache = LengthCache.build(ds, seed=loader.seed)
+    dense = make_layout("dense", bucket_spec=loader.bucket_spec, vocab_size=loader.vocab_size)
+    packed = loader.layout
+    cell = train_launcher.parser().parse_args(TRAIN_ARGS)  # ODB as the training run admits
+    odb_cfg = OdbConfig(l_max=cut["lmax"], buffer_size=cell.buffer, prefetch_factor=cell.prefetch,
+                        num_workers=4)
+    methods = {
+        "standard": (dense, lambda: standard_schedule(lengths, world, cut["std_bs"], seed=loader.seed)),
+        "sorted": (dense, lambda: sorted_schedule(lengths, world, cut["sorted_bs"], seed=loader.seed)),
+        "packing": (packed, lambda: packing_schedule(lengths, world, cut["budget"], seed=loader.seed)),
+        "gmt": (packed, lambda: gmt_schedule(cache, world, cut["budget"])),
+        "bmt": (packed, lambda: bmt_schedule(cache, world, cut["budget"], seed=loader.seed)),
+        "hfg": (dense, lambda: hfg_schedule(cache, world, cut["hfg_bs"], seed=loader.seed)),
+        "odb": (packed, lambda: odb_schedule(lengths, world, odb_cfg, seed=loader.seed)[0]),
+    }
+    firsts = {}
+    for name, (layout, build) in methods.items():
+        t = time.perf_counter()
+        steps = build()
+        build_s = time.perf_counter() - t
+        groups = [g for step in steps for g in step if g is not None]
+        slots = [step_slots(layout, step) for step in steps]
+        check(max(slots) <= CELL_SLOTS, f"{tag} {name}: a step of {max(slots)} token slots")
+        padded = (sum(packed_area(g, cut["budget"]) for g in groups) if name == "packing"
+                  else sum(g.padded_tokens for g in groups))
+        print(f"{tag} {name}: {len(steps)} steps, real tokens {sum(g.real_tokens for g in groups)}, "
+              f"padded tokens {padded} ({'windows' if name == 'packing' else 'size x longest'}), "
+              f"{layout.name} layout slots {sum(slots)} (largest step {max(slots)}), build "
+              f"{build_s:.4f}s" + (f" (the length cache took {cache.build_seconds:.4f}s, excluded)"
+                                   if name in ("gmt", "bmt", "hfg") else
+                                   f" (+ lengths {lengths_s:.4f}s)" if name != "odb" else ""))
+        firsts[name] = steps[0]
+
+    model, cfg0 = trainer.model, trainer.model.cfg
+    opt_cfg = trainer.opt_cfg
+    want = {"standard": ("segment_flash_attention", "segment_flash_attention_bwd_dq",
+                         "segment_flash_attention_bwd_dkv"),
+            "gmt": ("segment_flash_attention_pruned", "segment_flash_attention_bwd_pruned_dq",
+                    "segment_flash_attention_bwd_pruned_dkv")}
+    try:
+        for name, layout, grid in (("standard", dense, "dense"), ("gmt", packed, "pruned")):
+            model.cfg = dc.replace(cfg0, attn_impl="flash", attn_grid=grid)
+            state = trainer.init_state(torch.Generator(device=model.device).manual_seed(0))
+            step = firsts[name]
+            loader_step = LoaderStep(batches=layout.build_step(step), metadata=step_metadata(0, step))
+            batch = assemble_model_batch(loader_step, layout, model.device)
+            shape = tuple(batch["tokens"].shape)
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            t = time.perf_counter()
+            state, metrics = make_train_step(model, opt_cfg)(state, batch)
+            loss = float(metrics["loss"])
+            ms = 1e3 * (time.perf_counter() - t)
+            launches = dict(fa.LAUNCHES)
+            if name == "standard":
+                dense_launches = {k: launches[k] for k in want[name]}
+            fwd, dq, dkv = want[name]
+            n = cfg0.n_layers
+            check(launches == {**dict.fromkeys(launches, 0), fwd: 2 * n, dq: n, dkv: n},
+                  f"{tag} {name}: launches {launches}")
+            check(math.isfinite(loss) and math.isfinite(float(metrics["grad_norm"])),
+                  f"{tag} {name}: loss {loss}")
+            print(f"{tag} one full-width step on {name}'s first step ({layout.name} layout, "
+                  f"tokens {shape}, attn_grid {grid}): loss {loss}, grad_norm "
+                  f"{float(metrics['grad_norm'])}, {ms:.1f} ms (one run, its first call at this "
+                  f"shape; not a benchmark), launches {launches}")
+            del state, batch
+            torch.cuda.empty_cache()
+    finally:
+        model.cfg = cfg0
+    return dense_launches
+
+
+def chaos_census(train_seg) -> None:
+    """(d) The tile census on the training run's first step against the
+    liveness tables built on the card and the dense grid's causal rule."""
+    import torch
+
+    from repro_torch.kernels.autotune import heuristic_blocks
+    from repro_torch.kernels.flash_attention import live_tile_counts
+    from repro_torch.kernels.liveness import build_liveness_tables, fetched_tile_counts
+
+    tag = "[chaos] (d)"
+    rows, s = train_seg.shape
+    bq, bkv = heuristic_blocks(s)
+    t = time.perf_counter()
+    census = live_tile_counts(train_seg, s, bq, bkv)
+    census_s = time.perf_counter() - t
+    seg = torch.from_numpy(train_seg).cuda()
+    tables = build_liveness_tables(seg, block_q=census["block_q"], block_kv=census["block_kv"])
+    table_live = int(tables.kv_count.sum())
+    check(census["segment_live"] == table_live == int(tables.q_count.sum()),
+          f"{tag} segment_live {census['segment_live']} vs the tables' {table_live}")
+    nq, nk = s // census["block_q"], s // census["block_kv"]
+    qb = torch.arange(nq, device="cuda")[:, None] * census["block_q"]
+    kb = torch.arange(nk, device="cuda")[None, :] * census["block_kv"]
+    dense_causal = rows * int((qb + census["block_q"] - 1 >= kb).sum())  # flash_fwd.cu's test
+    check(census["causal_live"] == dense_causal,
+          f"{tag} causal_live {census['causal_live']} vs the dense grid's {dense_causal}")
+    fetched = fetched_tile_counts(train_seg, s, bq, bkv, heads=HEADS, kv_heads=KV_HEADS,
+                                  head_dim=D_HEAD, itemsize=2)
+    check(fetched["pruned_fetches"] < fetched["dense_fetches"]
+          and fetched["live_tiles"] == table_live, f"{tag} fetch census {fetched}")
+    print(f"{tag} step 1 segments {tuple(train_seg.shape)}, blocks ({census['block_q']}, "
+          f"{census['block_kv']}): live_tile_counts {census} ({census_s:.3f}s); segment_live equals "
+          f"the card's tables ({table_live}), causal_live the dense grid's causal tiles "
+          f"({dense_causal}); fetched_tile_counts (the TPU pipeline's re-fetch rule, kept for "
+          f"parity): dense {fetched['dense_fetches']} pruned {fetched['pruned_fetches']} of "
+          f"{fetched['grid_steps']} grid steps, {fetched['dense_fetched_bytes']} vs "
+          f"{fetched['pruned_fetched_bytes']} kv bytes")
+
+
+def phase_chaos(train_seg) -> dict:
+    """(a) the harness matrix, (b) faults through full-width packed
+    training, (c) the comparators and one step on two of them, (d) the tile
+    census against the card's tables.  Returns the flash kernels' launches:
+    K4-K6 in one run of (b), K1-K3 in (c)'s Standard step."""
+    import torch
+
+    from repro_torch.launch import train as train_launcher
+
+    t = time.perf_counter()
+    chaos_matrix()
+    print(f"[chaos] (a) {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(CHAOS_TRAIN_ARGS))
+    trainer._build_step()  # pins the route as train_epoch does: flash on the pruned grid
+    check((trainer.attn_impl, trainer.attn_grid) == ("flash", "pruned"),
+          f"[chaos] route {trainer.attn_impl}/{trainer.attn_grid}")
+    launches = chaos_training(trainer, loader)
+    print(f"[chaos] (b) {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    launches.update(chaos_comparators(trainer, loader))
+    print(f"[chaos] (c) {time.perf_counter() - t:.1f}s")
+    del trainer, loader
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    chaos_census(train_seg)
+    print(f"[chaos] (d) {time.perf_counter() - t:.1f}s")
+    return launches
+
+
 def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     """(FLOPs, bytes) of the least work of one K7 call with the final state:
     C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
@@ -2029,6 +2480,7 @@ def main() -> None:
     timed(phase_resume)
     dp_launches = timed(phase_dp_train)
     probes = timed(phase_probes, train_seg)
+    chaos_launches = timed(phase_chaos, train_seg)
     serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = timed(phase_times_training, np.random.default_rng(3), train_seg)
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
@@ -2043,6 +2495,10 @@ def main() -> None:
             launches_note=f"{TRAIN_STEPS} training steps on attn_grid={grid}, the train "
                           "launcher's default data path (streaming with prefetch)",
         )
+        entry.update(launches_chaos=chaos_launches[kname],
+                     launches_chaos_note="one full-width Standard step (dense layout, flash)"
+                     if grid == "dense" else f"one {TRAIN_STEPS}-step run of the chaos phase's "
+                     "fault runs (packed, streaming with prefetch and staging)")
         if grid == "dense":
             entry.update(launches_dp_train=dp_launches[kname],
                          launches_dp_train_note=f"per rank, {DP_STEPS} dp_step steps at world 2 "

@@ -367,8 +367,8 @@ class ResilientCollective(Collective):
     docstring).  An injected fault is decided before the gather is issued,
     so it is retried as in the JAX package.
 
-    ``injector`` is the chaos hook (the JAX package's ``repro.chaos.inject``
-    implements it; the port has no chaos module yet): called as
+    ``injector`` is the chaos hook (``repro_torch.chaos.CollectiveInjector``
+    implements it): called as
     ``on_gather(round_index, attempt, rank, tag)`` and returns ``None``
     (clean), ``"drop"`` (payload lost), or a float (simulated delivery
     latency in seconds — a fault only if it exceeds the deadline).

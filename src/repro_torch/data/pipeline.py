@@ -75,7 +75,7 @@ class SampleCorruptionError(RuntimeError):
     """
 
 
-# Chaos injection point (repro.chaos): called at the top of run_pipeline with
+# Chaos injection point (repro_torch.chaos): called at the top of run_pipeline with
 # (record, policy, epoch); raising there simulates a poison sample whose
 # corruption only manifests once the online pipeline touches it.  None = off.
 _FAULT_HOOK: "Callable[[RawRecord, PipelinePolicy, int], None] | None" = None

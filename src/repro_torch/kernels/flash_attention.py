@@ -69,6 +69,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 __all__ = [
     "LAUNCHES",
     "NEG_INF",
+    "live_tile_counts",
     "reset_launches",
     "resolve_blocks",
     "segment_flash_attention",
@@ -416,3 +417,74 @@ def segment_flash_attention_bwd_pruned(
     _raise_on(rc, lib, "segment_flash_attention_bwd_pruned (dk/dv)")
     LAUNCHES["segment_flash_attention_bwd_pruned_dkv"] += 1
     return dq, dk, dv
+
+
+def _host_segments(segment_ids):
+    """A (B, S) numpy copy of segment ids given as a tensor (on any device)
+    or an array."""
+    import numpy as np
+
+    if isinstance(segment_ids, torch.Tensor):
+        return segment_ids.detach().cpu().numpy()
+    return np.asarray(segment_ids)
+
+
+def live_tile_counts(
+    segment_ids, s: int, block_q: int, block_kv: int, causal: bool = True
+) -> dict:
+    """Host-side mirror of the kernels' block-skip rule (census and tests).
+
+    Counts (row, q-block, kv-block) tiles that survive (a) the causal skip
+    alone and (b) causal + segment-range skipping, for a (B, S) segment-id
+    array.  Pure numpy, block sizes resolved by ``select_block`` as the
+    kernels resolve them.  ``segment_live`` is the number of tiles the pruned
+    kernels (K4-K6) visit: the live entries of the liveness tables, summed
+    over rows and q-blocks; ``causal_live`` is what the dense grid (K1-K3)
+    does not skip on the causal test alone.  Sets the
+    ``kernel_live_tile_fraction`` gauges (``mode=causal|segment``).
+    """
+    seg = _host_segments(segment_ids)
+    bsz = seg.shape[0]
+    block_q = select_block(s, block_q)
+    block_kv = select_block(s, block_kv)
+    nq, nk = s // block_q, s // block_kv
+    total = bsz * nq * nk
+    causal_live = 0
+    seg_live = 0
+    for i in range(bsz):
+        for qb in range(nq):
+            qs = seg[i, qb * block_q : (qb + 1) * block_q]
+            q_pos = qs[qs > 0]
+            for kb in range(nk):
+                if causal and qb * block_q + block_q - 1 < kb * block_kv:
+                    continue
+                causal_live += 1
+                ks = seg[i, kb * block_kv : (kb + 1) * block_kv]
+                k_pos = ks[ks > 0]
+                if (
+                    q_pos.size
+                    and k_pos.size
+                    and q_pos.max() >= k_pos.min()
+                    and k_pos.max() >= q_pos.min()
+                ):
+                    seg_live += 1
+    out = {
+        "tiles": total,
+        "block_q": block_q,
+        "block_kv": block_kv,
+        "causal_live": causal_live,
+        "segment_live": seg_live,
+        "causal_live_fraction": causal_live / total if total else 0.0,
+        "segment_live_fraction": seg_live / total if total else 0.0,
+    }
+    from repro_torch import obs  # deferred: keep kernel import time lean
+
+    obs.gauge(
+        "kernel_live_tile_fraction",
+        help="fraction of attention tiles surviving the block-skip rule",
+        mode="causal",
+    ).set(out["causal_live_fraction"])
+    obs.gauge(
+        "kernel_live_tile_fraction", mode="segment"
+    ).set(out["segment_live_fraction"])
+    return out

@@ -11,6 +11,8 @@ backward of the training path.
 Plain torch on the segments' device.  The index clamp past the live count
 (repeat the last live block) is kept so the tables equal the JAX package's
 integer for integer; the CUDA kernel never reads past ``kv_count``.
+:func:`fetched_tile_counts` is the JAX package's host-side fetch census,
+kept for parity.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import _SEG_BIG
+from repro_torch.kernels.flash_attention import _SEG_BIG, _host_segments, select_block
 
 
 class LivenessTables(NamedTuple):
@@ -104,3 +106,103 @@ def build_liveness_tables(
     kv_idx, kv_count = compact_index(live)
     q_idx, q_count = compact_index(live.transpose(1, 2))
     return LivenessTables(kv_idx, kv_count, q_idx, q_count)
+
+
+def fetched_tile_counts(
+    segment_ids,
+    s: int,
+    block_q: int,
+    block_kv: int,
+    *,
+    causal: bool = True,
+    heads: int = 1,
+    kv_heads: int = 1,
+    head_dim: int = 64,
+    itemsize: int = 4,
+) -> dict:
+    """The JAX package's kv-tile fetch census for the forward grid, dense vs
+    pruned, kept rule for rule so the two packages' numbers agree.
+
+    The rule is the Pallas pipeline's on the TPU, not the CUDA kernels':
+    walking the (b, h, nq, nk) grid in row-major order, a kv tile is
+    (re)fetched whenever the kv index map's result differs from the previous
+    grid step's.  The dense grid maps step ik to kv block ik (every step
+    fetches); the pruned grid maps through the clamped row index, so the
+    dead tail of each row repeats the last live block and fetches nothing.
+    Bytes count the k and v tiles (``2 · block_kv · head_dim · itemsize``
+    per fetch).  The CUDA kernels load per thread block instead: K1 loads
+    every tile that passes its liveness test and K4 every tile in its table,
+    ``live_tile_counts(...)["segment_live"]`` tiles per head in both.  Sets
+    the ``kernel_fetched_tile_fraction`` and ``kernel_fetched_kv_bytes``
+    gauges (``grid=dense|pruned``).
+    """
+    import numpy as np
+
+    seg = _host_segments(segment_ids)
+    bsz = seg.shape[0]
+    block_q = select_block(s, block_q)
+    block_kv = select_block(s, block_kv)
+    nq, nk = s // block_q, s // block_kv
+    g = max(heads // kv_heads, 1)
+
+    live = block_liveness(torch.from_numpy(np.ascontiguousarray(seg, np.int32)),
+                          block_q, block_kv, causal=causal).numpy()
+    counts = live.sum(axis=-1)  # (B, nq)
+
+    dense_fetches = 0
+    pruned_fetches = 0
+    prev_dense = None
+    prev_pruned = None
+    for ib in range(bsz):
+        for ih in range(heads):
+            kvh = ih // g
+            for iq in range(nq):
+                row_live = np.flatnonzero(live[ib, iq])
+                cnt = int(counts[ib, iq])
+                last = int(row_live[-1]) if cnt else 0
+                for ik in range(nk):
+                    tile_d = (ib, kvh, ik)
+                    if tile_d != prev_dense:
+                        dense_fetches += 1
+                    prev_dense = tile_d
+                    kb = int(row_live[ik]) if ik < cnt else last
+                    tile_p = (ib, kvh, kb)
+                    if tile_p != prev_pruned:
+                        pruned_fetches += 1
+                    prev_pruned = tile_p
+
+    steps = bsz * heads * nq * nk
+    tile_bytes = 2 * block_kv * head_dim * itemsize  # k + v
+    out = {
+        "grid": [bsz, heads, nq, nk],
+        "block_q": block_q,
+        "block_kv": block_kv,
+        "grid_steps": steps,
+        "live_tiles": int(counts.sum()),
+        "dense_fetches": dense_fetches,
+        "pruned_fetches": pruned_fetches,
+        "dense_fetched_fraction": dense_fetches / steps if steps else 0.0,
+        "pruned_fetched_fraction": pruned_fetches / steps if steps else 0.0,
+        "kv_tile_bytes": tile_bytes,
+        "dense_fetched_bytes": dense_fetches * tile_bytes,
+        "pruned_fetched_bytes": pruned_fetches * tile_bytes,
+    }
+    from repro_torch import obs  # deferred: keep kernel import time lean
+
+    obs.gauge(
+        "kernel_fetched_tile_fraction",
+        help="fraction of forward-grid steps that DMA a fresh kv tile",
+        grid="dense",
+    ).set(out["dense_fetched_fraction"])
+    obs.gauge("kernel_fetched_tile_fraction", grid="pruned").set(
+        out["pruned_fetched_fraction"]
+    )
+    obs.gauge(
+        "kernel_fetched_kv_bytes",
+        help="kv bytes DMA'd by the forward grid per batch",
+        grid="dense",
+    ).set(float(out["dense_fetched_bytes"]))
+    obs.gauge("kernel_fetched_kv_bytes", grid="pruned").set(
+        float(out["pruned_fetched_bytes"])
+    )
+    return out

@@ -25,10 +25,11 @@ checkpoint directory, the error is raised.
 (``launch/calibrate.py``); ``--attn-autotune`` picks the flash kernels'
 block pair per shape from a measured probe (``kernels/autotune.py``);
 ``--hosts`` partitions the ranks over sharded admission windows;
-``--round-deadline``/``--round-retries`` go into ``OdbConfig`` as in JAX but
-change no run yet: the executor gathers in process and no fault injector is
-ported, so no gather can miss a deadline (the chaos harness, ROADMAP queue 1
-item 7, is what makes them bite); ``--telemetry DIR`` writes metrics.json, trace.json and
+``--round-deadline``/``--round-retries`` go into ``OdbConfig`` as in JAX: the
+executor gathers in process, so a gather misses its deadline only under a
+fault injector (``repro_torch.chaos.CollectiveInjector``, passed to
+``loader.streaming_epoch(fault_injector=...)``; the launcher passes none, as
+the JAX launcher does); ``--telemetry DIR`` writes metrics.json, trace.json and
 rounds.json at exit and ``--telemetry-port`` serves ``GET /metrics`` while
 the run goes on.
 """
@@ -132,14 +133,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--round-deadline", type=float, default=None, metavar="SECONDS",
         help="per-round collective delivery deadline (DESIGN.md §15), kept "
-             "in OdbConfig as in JAX. It changes no run yet: this launcher's "
-             "executor gathers in process and no fault injector is ported, "
-             "so no gather can miss it. Default: off",
+             "in OdbConfig as in JAX. This launcher's executor gathers in "
+             "process, so a gather misses it only under a fault injector "
+             "(repro_torch.chaos), which the launcher does not install. "
+             "Default: off",
     )
     ap.add_argument(
         "--round-retries", type=int, default=2,
         help="gather retries before a missed --round-deadline aborts; like "
-             "--round-deadline it changes no run yet",
+             "--round-deadline it bites only under a fault injector",
     )
     ap.add_argument(
         "--max-quarantine", type=int, default=0,

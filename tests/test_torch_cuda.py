@@ -1,7 +1,8 @@
 """Card-only checks of the port: the CUDA kernels, the engine, a train step,
 the streaming data path's staging of step arrays on the card, the SSM
-model's prefill and decode, the SSD's autograd Function and a bf16 SSM
-checkpoint on the GPU.
+model's prefill and decode, the SSD's autograd Function, a bf16 SSM
+checkpoint, the tile census against the card's liveness tables and a
+train step through a transient injected gather fault on the GPU.
 
 Every test here is marked ``cuda`` and skips itself where no CUDA device is
 present (the kernels have no CPU mode).  The file imports neither JAX nor the
@@ -21,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.chaos import ChaosPlan, CollectiveInjector
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import BucketSpec, OdbConfig
 from repro_torch.data import OnlineDynamicLoader, get_dataset
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.liveness import build_liveness_tables, fetched_tile_counts
 from repro_torch.kernels.ref import (
     segment_flash_attention_bwd_ref,
     segment_flash_attention_ref,
@@ -611,3 +614,84 @@ def test_dp_step_world1_over_nccl_matches_train_step(tmp_path):
         assert float(m_dp[key]) == pytest.approx(float(m_ref[key]), rel=2e-5, abs=2e-5)
     for a, b in zip(p_dp, p_ref):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", [
+    ((2, 6144), (128, 128)), ((3, 200), (128, 128)), ((2, 1024), (64, 128)),
+], ids=["2x6144", "3x200-block40", "2x1024-64x128"])
+def test_tile_census_matches_tables_on_card(shape, blocks):
+    """``live_tile_counts``' segment_live equals the live entries of the
+    liveness tables built on the card (the tiles K4-K6 visit), its
+    causal_live the dense grid's causal test (``flash_fwd.cu``), and the
+    fetch census counts fewer pruned than dense fetches."""
+    _need_card()
+    b, s = shape
+    seg = _inputs(0, b, s, 1, 1, 8, torch.float32)[3]
+    census = fa.live_tile_counts(seg, s, *blocks)
+    bq, bkv = census["block_q"], census["block_kv"]
+    assert (bq, bkv) == fa.resolve_blocks(s, *blocks)
+    tables = build_liveness_tables(seg, block_q=bq, block_kv=bkv)
+    assert tables.kv_count.is_cuda
+    assert int(tables.kv_count.sum()) == int(tables.q_count.sum()) == census["segment_live"]
+    qb = torch.arange(s // bq, device="cuda")[:, None] * bq
+    kb = torch.arange(s // bkv, device="cuda")[None, :] * bkv
+    assert census["causal_live"] == b * int((qb + bq - 1 >= kb).sum())
+    fetched = fetched_tile_counts(seg, s, *blocks, heads=16, kv_heads=8, head_dim=128, itemsize=2)
+    assert fetched["live_tiles"] == census["segment_live"]
+    assert fetched["pruned_fetches"] < fetched["dense_fetches"]
+
+
+@pytest.mark.cuda
+def test_transient_gather_fault_step_equals_fault_free_on_card():
+    """Two smoke-size fp32 train steps (packed, the pruned kernels) through
+    ``streaming_epoch(prefetch=True, device_put=True)``, fault-free twice and
+    once under ``CollectiveInjector("gather_delay")`` with every attempt-0
+    delivery late: the same staged arrays, and the fault run's losses and
+    grad_norm equal to the fault-free run's, bitwise where the fault-free
+    pair is bitwise and within its spread otherwise."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"), attn_impl="flash", attn_grid="pruned")
+    model = LM(cfg)
+    opt_cfg = OptimizerConfig(total_steps=100)
+    loader = OnlineDynamicLoader(
+        get_dataset("ultrachat", scale=0.002), 2,
+        OdbConfig(l_max=1024, buffer_size=4, prefetch_factor=4, round_deadline_s=0.05,
+                  retry_backoff_s=0.001),
+        bucket_spec=BucketSpec(min_len=128, max_len=16384, max_count=1024),
+        layout="packed", vocab_size=cfg.vocab_size,
+    )
+
+    def run(injector):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        step_fn = make_train_step(model, opt_cfg)
+        out, arrays = [], []
+        steps = loader.streaming_epoch(prefetch=True, device_put=True, device="cuda",
+                                       fault_injector=injector)
+        try:
+            for ls in steps:
+                batch = assemble_model_batch(ls, loader.layout, model.device)
+                arrays.append({k: v.clone() for k, v in ls.device.host.items()})
+                state, metrics = step_fn(state, batch)
+                out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+                if len(out) == 2:
+                    break
+        finally:
+            steps.close()
+        return out, arrays
+
+    ref, ref_arrays = run(None)
+    twin, _ = run(None)
+    injector = CollectiveInjector(ChaosPlan(0, 2), kind="gather_delay", rate=1.0, max_delay_s=1.0)
+    got, got_arrays = run(injector)
+    assert injector.injected > 0
+    for a, b in zip(got_arrays, ref_arrays):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    if twin == ref:
+        assert got == ref
+    else:
+        for i in range(2):
+            spread = max(abs(x[i] - y[i]) for x, y in zip(twin, ref))
+            assert all(abs(x[i] - y[i]) <= spread for x, y in zip(got, ref))

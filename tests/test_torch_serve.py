@@ -142,7 +142,8 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch.serve, repro_torch.launch.serve, repro_torch.bridge, "
         "repro_torch.launch.train, repro_torch.kernels.ops, repro_torch.stream, "
-        "repro_torch.stream.workers; "
+        "repro_torch.stream.workers, repro_torch.chaos, repro_torch.data.oracles, "
+        "repro_torch.kernels.liveness; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
