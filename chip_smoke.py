@@ -13,7 +13,10 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                with 16 q heads over 8 kv heads, d_head 128, and at the
                backward's extra shapes (the first training step's, block 40
                at 3 x 200, a peaked softmax at 2 x 1024, a GQA group of 8,
-               d_head 64 at 3 x 96), in fp32 (the CUDA-core route) and bf16
+               d_head 64 at 3 x 96, and the added architectures' layouts:
+               16 over 16 at d_head 80 bidirectional, a group of 7 (56 over
+               8; 14 over 2 at d_head 80 bidirectional), a group of 1 (32
+               over 32)), in fp32 (the CUDA-core route) and bf16
                (the tensor-core route): held against the plain PyTorch
                version on valid rows (bf16: atol = rtol = 2e-2; fp32: 2e-5;
                lse in fp32 at 2e-5 in both), K4 against K1 with
@@ -27,7 +30,8 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                dS terms that cancel in dK, where the bf16 kernels' rounding
                of P and scale.dS costs most), with a GQA
                group of 8 (16 q heads over 2 kv heads, 2 x 512) and at d_head
-               64 (3 x 96, block 96), in bf16 and fp32: each against the
+               64 (3 x 96, block 96) and at the added architectures' layouts
+               (as in parity), in bf16 and fp32: each against the
                plain backward on valid rows at the tolerances above (each
                case's worst error printed as a share of what allclose
                allows), K5 == K2 and K6 == K3 with ``torch.equal``, and
@@ -161,7 +165,35 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                on Standard's first step (dense, K1-K3) and GMT's (packed,
                K4-K6); (d) the tile census of the first training step
                against the liveness tables built on the card;
-14. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+14. archs    — the six architectures added after Qwen3 and mamba2, at full
+               width, random weights from seed 0, bf16, the kernels' counts
+               set to 0 before each run and read after it: OLMo-1B
+               (non-parametric LN, 16 over 16 heads) trains ARCH_TRAIN_STEPS
+               steps through the train launcher (``--layout packed --world 2
+               --l-max 4096``; K4 2 x 16, K5 and K6 16 per step), then one
+               step's loss and gradients on the pruned and the dense grid
+               must be bitwise equal; HuBERT-XLarge (encoder: bidirectional,
+               d_head 80, LN, GELU, input embeddings) takes one ``loss_sums``
+               with its gradients on a packed embeds batch of 2 x 4096 frames
+               (K4 2 x 48, K5 and K6 48) and one encode, its loss on the
+               dense grid bitwise equal to the pruned grid's; DeepSeek-7B
+               (32 over 32 heads) serves the serving phase's trace whole
+               through ``python -m repro_torch.launch.serve --arch
+               deepseek_7b`` (its defaults), and
+               Yi-34B (56 over 8) and Chameleon-34B (64 over 8, qk-norm) at 4
+               layers and Arctic-480B (MoE, 128 experts of 7168 x 4864 top-2,
+               a dense residual MLP) at 1 layer serve the same 24-request
+               trace through the engine (K4 n_layers times per prefill call,
+               K1 never); per run tokens/s, step or tick time, peak memory,
+               for HuBERT the loss, grad norm and encode time, for Arctic the
+               (token, expert) pairs dropped at capacity in the first prefill
+               and over the run; finite losses; after each run K1-K6 (K1 and
+               K4 for the served models) held against their plain versions
+               in both dtypes at the segment ids the run gave its attention
+               (OLMo's step 1, HuBERT's batch, each prefill bucket's first
+               call; DeepSeek's buckets with seeded packing) and the model's
+               heads, K4 == K1, K5 == K2, K6 == K3 bitwise;
+15. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
@@ -172,8 +204,12 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                with its device kernels per call and their times under
                ``torch.profiler`` (a bf16 call must launch four), its bound share
                and its scratch bytes (peak allocated during one call, less y
-               and the final state);
-15. kernels  — one JSON line with every ported kernel.
+               and the final state); K1-K6 also at the added architectures'
+               head layouts on two packed rows of 4096 (HuBERT-XLarge's 16
+               over 16 at d_head 80, bidirectional; Yi-34B's and Arctic-480B's
+               56 over 8, causal); at each of these shapes the timed inputs
+               are first held against the plain version (K1-K6, bf16);
+16. kernels  — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -293,6 +329,25 @@ CHAOS_POISON = 3
 COMPARATOR_SELECTED = dict(std_bs=8, sorted_bs=16, lmax=16384, budget=16384, hfg_bs=8)
 COMPARATOR_CUT = dict(std_bs=1, sorted_bs=1, lmax=4096, budget=6144, hfg_bs=1)
 CELL_SLOTS = 2 * 6144
+# The archs phase: the six architectures added after Qwen3 and mamba2, at
+# full width.  OLMo-1B trains through the train launcher; HuBERT-XLarge
+# (encoder-only, input embeddings) takes one loss and its gradients on a
+# packed embeds batch and one encode; DeepSeek-7B is served whole through
+# the serve launcher's defaults, and the three that do not fit one card
+# serve the same whole trace through the engine with their depth cut
+# (arch -> layers).
+ARCH_TRAIN_STEPS = 4
+ARCH_TRAIN_ARGS = ["--arch", "olmo_1b", "--layout", "packed", "--world", "2", "--l-max", "4096",
+                   "--steps", str(ARCH_TRAIN_STEPS), "--log-every", "1"]
+HUBERT_ROWS, HUBERT_FRAMES = 2, 4096
+ARCH_SERVE_CUT = {"yi_34b": 4, "chameleon_34b": 4, "arctic_480b": 1}
+ARCH_SERVE_REQUESTS = 24  # the serve launcher's default trace
+# The flash kernels' times at the added architectures' head layouts, each on
+# two packed rows of 4096 (label, widths).
+ARCH_TIME_SHAPES = (
+    ("HuBERT-XLarge", dict(heads=16, kv_heads=16, d_head=80, causal=False)),
+    ("Yi-34B / Arctic-480B", dict(heads=56, kv_heads=8, d_head=128, causal=True)),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -313,6 +368,25 @@ def packed_segments(rng, rows: int, cap: int):
             seg[r, cursor:min(end, cursor + n)] = seg_id
             cursor, seg_id = cursor + n, seg_id + 1
     return seg
+
+
+def long_segments(rng, rows: int, cap: int, lo: int = 256, hi: int = 2048):
+    """Seeded packing of long samples (documents, utterances) of lo..hi
+    tokens back to back with a padding tail, and their within-segment
+    positions."""
+    import numpy as np
+
+    seg = np.zeros((rows, cap), np.int32)
+    pos = np.zeros((rows, cap), np.int32)
+    for r in range(rows):
+        end = cap - int(rng.integers(1, cap // 16))
+        cursor, seg_id = 0, 1
+        while cursor < end:
+            n = min(int(rng.integers(lo, hi + 1)), end - cursor)
+            seg[r, cursor:cursor + n] = seg_id
+            pos[r, cursor:cursor + n] = np.arange(n)
+            cursor, seg_id = cursor + n, seg_id + 1
+    return seg, pos
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -374,63 +448,51 @@ def make_case(rng, seg, dtype, heads=HEADS, kv_heads=KV_HEADS, d_head=D_HEAD):
     return (*qkv, torch.from_numpy(seg).cuda())
 
 
+def flash_cases(rng, train_seg) -> list:
+    """(label, segment ids, options) of the parity cases: the serving
+    shapes, the first training step's, block 40 at 3 x 200, a peaked
+    softmax (q x 4: P near one-hot, large dS terms cancelling in dK, bf16
+    rounding at its worst), a GQA group of 8 (16 q heads over 2), d_head 64
+    at 3 x 96 (block 96), and the added architectures' head layouts and
+    masks: HuBERT-XLarge's 16 over 16 heads at d_head 80, bidirectional;
+    Yi-34B's and Arctic-480B's GQA group of 7 (56 over 8); a group of 7 at
+    d_head 80, bidirectional; DeepSeek-7B's group of 1 (32 over 32)."""
+    return [
+        *((f"serving {rows}x{cap}", packed_segments(rng, rows, cap), {}) for rows, cap in SHAPES),
+        ("training step", train_seg, {}), ("block 40", packed_segments(rng, 3, 200), {}),
+        ("peaked q x4", packed_segments(rng, 2, 1024), dict(q_scale=4.0)),
+        ("group 8", packed_segments(rng, 2, 512), dict(kv_heads=2)),
+        ("d_head 64", packed_segments(rng, 3, 96), dict(d_head=64)),
+        ("d_head 80 non-causal", packed_segments(rng, 2, 512),
+         dict(heads=16, kv_heads=16, d_head=80, causal=False)),
+        ("group 7", packed_segments(rng, 2, 512), dict(heads=56, kv_heads=8)),
+        ("group 7 d_head 80 non-causal", packed_segments(rng, 2, 256),
+         dict(heads=14, kv_heads=2, d_head=80, causal=False)),
+        ("group 1", packed_segments(rng, 2, 512), dict(heads=32, kv_heads=32)),
+    ]
+
+
 def phase_parity(rng, train_seg):
-    """K1 and K4 against the plain forward in both dtypes (out at the
-    dtype's tolerance, lse at 2e-5), K4 == K1 bit for bit, exactly zero
-    output on all-padding rows, and the liveness tables on the card against
-    the CPU's."""
+    """K1 and K4 against the plain forward at every flash case in both
+    dtypes (compare_kernels), and the liveness tables on the card against
+    the CPU's; returns the bf16 errors."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.liveness import build_liveness_tables
-    from repro_torch.kernels.ref import segment_flash_attention_ref
 
     max_err = {"segment_flash_attention": 0.0, "segment_flash_attention_pruned": 0.0}
-    cases = [("", packed_segments(rng, rows, cap), {}) for rows, cap in SHAPES]
-    cases += [("training step", train_seg, {}), ("block 40", packed_segments(rng, 3, 200), {}),
-              ("peaked q x4", packed_segments(rng, 2, 1024), dict(q_scale=4.0)),
-              ("group 8", packed_segments(rng, 2, 512), dict(kv_heads=2)),  # 16 q heads over 2
-              ("d_head 64", packed_segments(rng, 3, 96), dict(d_head=64))]  # block 96
-    for label, seg_np, extra in cases:
-        rows, cap = seg_np.shape
-        blk = fa.select_block(cap, 128)
-        widths = {key: val for key, val in extra.items() if key != "q_scale"}
-        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            q, k, v, seg = make_case(rng, seg_np, dtype, **widths)
-            q = (q.float() * extra.get("q_scale", 1.0)).to(dtype)
-            kw = dict(block_q=blk, block_kv=blk, return_lse=True)
-            o1, l1 = fa.segment_flash_attention(q, k, v, seg, **kw)
-            o4, l4 = fa.segment_flash_attention_pruned(q, k, v, seg, **kw)
-            ro, rl = segment_flash_attention_ref(q, k, v, seg, return_lse=True)
-            torch.cuda.synchronize()
-            valid = seg > 0
-            tol = TOL[dname]
-            for name, o, l in (("segment_flash_attention", o1, l1),
-                               ("segment_flash_attention_pruned", o4, l4)):
-                ok_out = torch.allclose(o[valid].float(), ro[valid].float(), atol=tol, rtol=tol)
-                ok_lse = torch.allclose(l[valid], rl[valid], atol=TOL["float32"], rtol=TOL["float32"])
-                err = (o[valid].float() - ro[valid].float()).abs().max().item()
-                lerr = (l[valid] - rl[valid]).abs().max().item()
-                check(ok_out and ok_lse, f"{name} vs plain at {(rows, cap)} {label} {dname}: "
-                                         f"out err {err}, lse err {lerr}")
-                check(bool(torch.all(o[~valid] == 0)),
-                      f"{name} output not zero on padding rows at {(rows, cap)} {label} {dname}")
-                if dname == "bfloat16":
-                    max_err[name] = max(max_err[name], err)
-                print(f"[parity] {name} rows={rows} cap={cap} block={blk} heads={q.shape[2]}/{k.shape[2]} "
-                      f"d_head={q.shape[3]}{' (' + label + ')' if label else ''} {dname}: "
-                      f"max_abs_err out {err:.3g} lse {lerr:.3g} (tol {tol}, lse 2e-05), padding rows zero")
-            check(torch.equal(o1, o4) and torch.equal(l1, l4),
-                  f"K4 not bit-exact vs K1 at {(rows, cap)} {label} {dname}")
-            print(f"[parity] K4 == K1 bit-exact rows={rows} cap={cap} {dname}")
-            del q, k, v, o1, l1, o4, l4, ro, rl
-        on_card = build_liveness_tables(seg, block_q=blk, block_kv=blk)
-        on_cpu = build_liveness_tables(seg.cpu(), block_q=blk, block_kv=blk)
+    for label, seg_np, extra in flash_cases(rng, train_seg):
+        errs = hold_kernels(rng, f"[parity] {label}", seg_np, backward=False, **extra)
+        max_err = {name: max(err, errs[name]) for name, err in max_err.items()}
+        seg, blk = torch.from_numpy(seg_np).cuda(), fa.select_block(seg_np.shape[1], 128)
+        causal = extra.get("causal", True)
+        on_card = build_liveness_tables(seg, block_q=blk, block_kv=blk, causal=causal)
+        on_cpu = build_liveness_tables(seg.cpu(), block_q=blk, block_kv=blk, causal=causal)
         check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
-              f"liveness tables differ between card and CPU at {(rows, cap)}")
-        print(f"[parity] liveness tables card == cpu rows={rows} cap={cap} "
-              f"live tiles {int(on_card.kv_count.sum())}/{rows * (cap // blk) ** 2}")
-    torch.cuda.empty_cache()
+              f"liveness tables differ between card and CPU at {label}")
+        print(f"[parity] liveness tables card == cpu {label} {tuple(seg.shape)} "
+              f"live tiles {int(on_card.kv_count.sum())}/{seg.shape[0] * (seg.shape[1] // blk) ** 2}")
     return max_err
 
 
@@ -445,10 +507,10 @@ def training_segments():
     return global_batch_arrays(first.batches, loader.layout)["segments"]
 
 
-def bwd_case(rng, seg, dtype, q_scale=1.0, **widths):
+def bwd_case(rng, seg, dtype, q_scale=1.0, causal=True, **widths):
     """Inputs of one backward call: q (times ``q_scale``), k, v, seg, and the
-    forward's out and lse (from K1), and a cotangent do; ``widths`` override
-    make_case's heads, kv_heads and d_head."""
+    forward's out and lse (from K1 under the ``causal`` mask), and a
+    cotangent do; ``widths`` override make_case's heads, kv_heads and d_head."""
     import numpy as np
     import torch
 
@@ -457,65 +519,93 @@ def bwd_case(rng, seg, dtype, q_scale=1.0, **widths):
     q, k, v, seg_t = make_case(rng, seg, dtype, **widths)
     q = (q.float() * q_scale).to(dtype)
     blk = fa.select_block(seg.shape[1], 128)
-    out, lse = fa.segment_flash_attention(q, k, v, seg_t, block_q=blk, block_kv=blk, return_lse=True)
+    out, lse = fa.segment_flash_attention(q, k, v, seg_t, block_q=blk, block_kv=blk, return_lse=True,
+                                          causal=causal)
     do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to("cuda", dtype)
     return (q, k, v, seg_t, out, lse, do), blk
 
 
-def phase_backward(rng, train_seg):
-    """K2/K3 and K5/K6 against the plain backward, the two bit-exact pairs,
-    and exactly zero gradients on all-padding rows."""
+def compare_kernels(args, blk: int, causal: bool, dname: str, where: str, backward: bool = True) -> dict:
+    """K1 and K4 (and, with ``backward``, K2/K3 and K5/K6) on the inputs
+    ``args`` = (q, k, v, seg, out, lse, do), out and lse from K1: each against
+    its plain version on valid rows (out and the gradients at the dtype's
+    tolerance, lse at 2e-5), K4 == K1, K5 == K2 and K6 == K3 bit for bit, and
+    exactly zero on all-padding rows.  Returns each kernel's max abs error."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import segment_flash_attention_bwd_ref
+    from repro_torch.kernels.ref import segment_flash_attention_bwd_ref, segment_flash_attention_ref
 
-    max_err = {name: 0.0 for pair in BWD_PAIRS for name in pair}
-    cases = [("", packed_segments(rng, rows, cap), {}) for rows, cap in SHAPES]
-    cases += [("training step", train_seg, {}), ("block 40", packed_segments(rng, 3, 200), {}),
-              # P near one-hot, large dS terms cancelling in dK: bf16 rounding at its worst
-              ("peaked q x4", packed_segments(rng, 2, 1024), dict(q_scale=4.0)),
-              ("group 8", packed_segments(rng, 2, 512), dict(kv_heads=2)),  # 16 q heads over 2
-              ("d_head 64", packed_segments(rng, 3, 96), dict(d_head=64))]  # block 96
-    for label, seg_np, extra in cases:
-        rows, cap = seg_np.shape
-        for tname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            args, blk = bwd_case(rng, seg_np, dtype, **extra)
-            kw = dict(block_q=blk, block_kv=blk)
-            dense = fa.segment_flash_attention_bwd(*args, **kw)
-            pruned = fa.segment_flash_attention_bwd_pruned(*args, **kw)
-            plain = segment_flash_attention_bwd_ref(*args)
-            torch.cuda.synchronize()
-            valid, tol = args[3] > 0, TOL[tname]
-            # The dQ pass writes dq, the dK/dV pass dk and dv.
-            for (dense_name, pruned_name), outputs in zip(BWD_PAIRS, ((0,), (1, 2))):
-                errs, shares = [], []
-                for i in outputs:
-                    a, b, ref = dense[i], pruned[i], plain[i]
-                    check(torch.equal(a, b), f"{pruned_name} not bit-exact vs {dense_name} "
-                                             f"at {(rows, cap)} {tname}")
-                    check(bool(torch.all(a[~valid] == 0)),
-                          f"{dense_name} output {i} not zero on padding rows at {(rows, cap)} {tname}")
-                    ours, theirs = a[valid].float(), ref[valid].float()
-                    ok = torch.allclose(ours, theirs, atol=tol, rtol=tol)
-                    errs.append((ours - theirs).abs().max().item())
-                    # the worst error as a share of what allclose allows there
-                    shares.append(((ours - theirs).abs() / (tol + tol * theirs.abs())).max().item())
-                    check(ok, f"{dense_name} output {i} vs plain at {(rows, cap)} {tname}: err {errs[-1]}")
-                if tname == "bfloat16":
-                    for name in (dense_name, pruned_name):
-                        max_err[name] = max(max_err[name], max(errs))
-                print(f"[backward] {dense_name} == {pruned_name} bit-exact rows={rows} cap={cap} block={blk} "
-                      f"heads={args[0].shape[2]}/{args[1].shape[2]} d_head={args[0].shape[3]}"
-                      f"{' (' + label + ')' if label else ''} {tname}: max_abs_err vs plain "
-                      f"{max(errs):.3g} (tol {tol}; {max(shares):.3f} of the allowance), padding rows zero")
-            del args, dense, pruned, plain
+    q, k, v, seg, o1, l1, do = args
+    kw = dict(block_q=blk, block_kv=blk, causal=causal)
+    o4, l4 = fa.segment_flash_attention_pruned(q, k, v, seg, return_lse=True, **kw)
+    ro, rl = segment_flash_attention_ref(q, k, v, seg, causal=causal, return_lse=True)
+    got = {"segment_flash_attention": [(o1, ro)]}
+    pairs = [("segment_flash_attention", "segment_flash_attention_pruned", (o1, l1), (o4, l4))]
+    if backward:
+        dense = fa.segment_flash_attention_bwd(q, k, v, seg, o1, l1, do, **kw)
+        pruned = fa.segment_flash_attention_bwd_pruned(q, k, v, seg, o1, l1, do, **kw)
+        plain = segment_flash_attention_bwd_ref(q, k, v, seg, o1, l1, do, causal=causal)
+        (dq_name, _), (dkv_name, _) = BWD_PAIRS
+        got.update({dq_name: [(dense[0], plain[0])], dkv_name: [(dense[1], plain[1]), (dense[2], plain[2])]})
+        pairs += [(*BWD_PAIRS[0], dense[:1], pruned[:1]), (*BWD_PAIRS[1], dense[1:], pruned[1:])]
+    torch.cuda.synchronize()
+    shape = f"{tuple(seg.shape)} heads {q.shape[2]}/{k.shape[2]} d_head {q.shape[3]} causal {causal}"
+    for dense_name, pruned_name, a, b in pairs:
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{pruned_name} not bit-exact vs {dense_name} at {where} {shape} {dname}")
+    valid, tol = seg > 0, TOL[dname]
+    lerr = (l1[valid] - rl[valid]).abs().max().item()
+    check(torch.allclose(l1[valid], rl[valid], atol=TOL["float32"], rtol=TOL["float32"]),
+          f"segment_flash_attention lse vs plain at {where} {shape} {dname}: err {lerr}")
+    errs, share = {}, 0.0
+    for name, outputs in got.items():
+        for ours, ref in outputs:
+            a, b = ours[valid].float(), ref[valid].float()
+            err = (a - b).abs().max().item()
+            check(torch.allclose(a, b, atol=tol, rtol=tol), f"{name} vs plain at {where} {shape} {dname}: err {err}")
+            check(bool(torch.all(ours[~valid] == 0)), f"{name} not zero on padding rows at {where} {shape}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            # the worst error as a share of what allclose allows there
+            share = max(share, ((a - b).abs() / (tol + tol * b.abs())).max().item())
+    for dense_name, pruned_name, _, _ in pairs:
+        errs[pruned_name] = errs[dense_name]
+    print(f"[held] {where} {shape} {dname}: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + f" max_abs_err vs plain (tol {tol}; {share:.3f} of the allowance), lse {lerr:.3g} (tol 2e-05); "
+          + ("K4 == K1, K5 == K2, K6 == K3" if backward else "K4 == K1") + " bitwise, padding rows zero")
+    return errs
+
+
+def hold_kernels(rng, where: str, seg_np, causal: bool = True, backward: bool = True, **widths) -> dict:
+    """compare_kernels in both dtypes on seeded q, k, v and cotangent at the
+    segment ids ``seg_np`` (a parity case's, or those a run of the main path
+    gave its attention), with the head layout and q scale ``widths``
+    (bwd_case's options); returns the bf16 errors."""
+    import torch
+
+    errs = {}
+    for dname in ("float32", "bfloat16"):
+        args, blk = bwd_case(rng, seg_np, getattr(torch, dname), causal=causal, **widths)
+        errs = compare_kernels(args, blk, causal, dname, where, backward)
+        del args
     torch.cuda.empty_cache()
+    return errs
+
+
+def phase_backward(rng, train_seg):
+    """K1-K6 against their plain versions at every flash case in both dtypes
+    (compare_kernels: K5 == K2, K6 == K3 bitwise, zero gradients on
+    all-padding rows); returns the bf16 errors."""
+    max_err = {name: 0.0 for pair in BWD_PAIRS for name in pair}
+    for label, seg_np, extra in flash_cases(rng, train_seg):
+        errs = hold_kernels(rng, f"[backward] {label}", seg_np, **extra)
+        max_err = {name: max(err, errs[name]) for name, err in max_err.items()}
     return max_err
 
 
-def record_prefill(engine, sink: list) -> None:
-    """Keep every prefill call's picked logits (the engine discards them)."""
+def record_prefill(engine, sink: list | None = None, segments: list | None = None) -> None:
+    """Keep every prefill call's picked logits (the engine discards them) in
+    ``sink`` and its segment ids, as numpy, in ``segments``."""
     lookup = engine._prefill_fn
 
     def wrapped(shape):
@@ -523,7 +613,10 @@ def record_prefill(engine, sink: list) -> None:
 
         def call(*args):
             picked, caches = fn(*args)
-            sink.append(picked.detach().clone())
+            if sink is not None:
+                sink.append(picked.detach().clone())
+            if segments is not None:
+                segments.append(args[4].cpu().numpy())  # params, caches, tokens, positions, segments
             return picked, caches
 
         return call
@@ -857,28 +950,28 @@ def phase_training() -> dict:
     return launches
 
 
-def visible_pairs(seg) -> int:
-    """The (query, key) pairs that the causal segment mask lets through,
+def visible_pairs(seg, causal: bool = True) -> int:
+    """The (query, key) pairs that the (causal) segment mask lets through,
     summed over the batch rows: the work the attention function needs, which
     a live tile's masked entries (above the diagonal, across segments) add
     nothing to."""
     import torch
 
     pos = torch.arange(seg.shape[1], device=seg.device)
-    causal = pos[None, :] <= pos[:, None]
-    return sum(int((causal & (row[None, :] == row[:, None]) & (row[None, :] > 0)).sum())
+    order = (pos[None, :] <= pos[:, None]) | (not causal)
+    return sum(int((order & (row[None, :] == row[:, None]) & (row[None, :] > 0)).sum())
                for row in seg)
 
 
-def sdpa_inputs(q, k, v, seg):
+def sdpa_inputs(q, k, v, seg, causal: bool = True):
     """The SDPA yardstick's (B, H, S, D) layout, kv heads repeated, and the
     same visibility as a boolean mask (rows with no visible key are padding)."""
     import torch
 
     cap = q.shape[1]
     pos = torch.arange(cap, device="cuda")
-    mask = ((pos[None, :] <= pos[:, None])[None] & (seg[:, :, None] == seg[:, None, :])
-            & (seg[:, None, :] > 0))[:, None]
+    mask = (((pos[None, :] <= pos[:, None]) | (not causal))[None]
+            & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
@@ -924,13 +1017,17 @@ def phase_times(rng, launches: dict):
     return rows_out
 
 
-def phase_times_training(rng, train_seg) -> dict:
-    """Every kernel at the first training step's shape (bf16): each pass of
-    the backward alone through its C entry point, the plain version, the
+def phase_times_training(rng, train_seg, heads=HEADS, kv_heads=KV_HEADS, d_head=D_HEAD,
+                         causal=True, label="training step 1") -> dict:
+    """Every kernel at the first training step's shape (bf16), first held
+    against the plain version on the timed inputs (compare_kernels), then
+    timed: each pass of the backward alone through its C entry point, the
+    plain version, the
     SDPA yardstick (its forward for K1/K4, its backward for the backward
     kernels) and the bound (4, 6 or 8 D FLOPs per visible (query, key) pair
     and head for the forward, dQ and dK/dV; each input read once, each output
-    written once)."""
+    written once).  The widths and mask default to the training run's;
+    ``label`` names the shape in the printed lines."""
     import ctypes
 
     import torch
@@ -941,15 +1038,17 @@ def phase_times_training(rng, train_seg) -> dict:
     from repro_torch.kernels.liveness import build_liveness_tables
     from repro_torch.kernels.ref import segment_flash_attention_bwd_ref, segment_flash_attention_ref
 
-    (q, k, v, seg, out, lse, do), blk = bwd_case(rng, train_seg, torch.bfloat16)
+    widths = dict(heads=heads, kv_heads=kv_heads, d_head=d_head)
+    (q, k, v, seg, out, lse, do), blk = bwd_case(rng, train_seg, torch.bfloat16, causal=causal, **widths)
     rows, cap = train_seg.shape
-    tables = build_liveness_tables(seg, block_q=blk, block_kv=blk)
-    live = int(tables.kv_count.sum()) * HEADS  # live (row, q-head, tile) triples
-    pairs = visible_pairs(seg) * HEADS  # visible (row, q-head, query, key)
+    errs = compare_kernels((q, k, v, seg, out, lse, do), blk, causal, "bfloat16", f"[times] {label}")
+    tables = build_liveness_tables(seg, block_q=blk, block_kv=blk, causal=causal)
+    live = int(tables.kv_count.sum()) * heads  # live (row, q-head, tile) triples
+    pairs = visible_pairs(seg, causal) * heads  # visible (row, q-head, query, key)
     delta = (do.float() * out.float()).sum(dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = build.load_library("flash_bwd")
-    dims = (rows, cap, HEADS, KV_HEADS, D_HEAD, blk, blk, 1, 1.0 / D_HEAD**0.5,
+    dims = (rows, cap, heads, kv_heads, d_head, blk, blk, int(causal), 1.0 / d_head**0.5,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     ptr = fa._ptr
     head = (1, 0, ptr(q), ptr(k), ptr(v), ptr(seg))  # bf16 on device 0
@@ -967,16 +1066,16 @@ def phase_times_training(rng, train_seg) -> dict:
         rc = getattr(lib, KERNELS[name][3])(*calls[name], *dims)
         check(rc == 0, f"{name}: CUDA error {rc}")
 
-    elem = rows * cap * D_HEAD  # elements of one head's (rows, cap, D) slab
-    qo_bytes, kv_bytes = 2 * elem * HEADS, 2 * elem * KV_HEADS
-    stat_bytes = 4 * rows * cap * HEADS  # one fp32 (rows, cap, H) statistic
+    elem = rows * cap * d_head  # elements of one head's (rows, cap, D) slab
+    qo_bytes, kv_bytes = 2 * elem * heads, 2 * elem * kv_heads
+    stat_bytes = 4 * rows * cap * heads  # one fp32 (rows, cap, H) statistic
     seg_bytes = 4 * rows * cap
     work = {  # name -> (FLOPs, bytes read once + written once)
-        "fwd": (4.0 * D_HEAD * pairs, 2 * qo_bytes + 2 * kv_bytes + stat_bytes + seg_bytes),
-        "dq": (6.0 * D_HEAD * pairs, 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
-        "dkv": (8.0 * D_HEAD * pairs, 2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "fwd": (4.0 * d_head * pairs, 2 * qo_bytes + 2 * kv_bytes + stat_bytes + seg_bytes),
+        "dq": (6.0 * d_head * pairs, 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "dkv": (8.0 * d_head * pairs, 2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
     }
-    qt, kt, vt, mask = sdpa_inputs(q, k, v, seg)
+    qt, kt, vt, mask = sdpa_inputs(q, k, v, seg, causal)
     t_lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=10)
     qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -984,12 +1083,12 @@ def phase_times_training(rng, train_seg) -> dict:
     t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True),
                         iters=5, warmup=1)
     del lib_out, qt, kt, vt, mask
-    t_plain_fwd = cuda_ms(lambda: segment_flash_attention_ref(q, k, v, seg, return_lse=True),
+    t_plain_fwd = cuda_ms(lambda: segment_flash_attention_ref(q, k, v, seg, causal, return_lse=True),
                           iters=3, warmup=1)
-    t_plain_bwd = cuda_ms(lambda: segment_flash_attention_bwd_ref(q, k, v, seg, out, lse, do),
+    t_plain_bwd = cuda_ms(lambda: segment_flash_attention_bwd_ref(q, k, v, seg, out, lse, do, causal),
                           iters=3, warmup=1)
     torch.cuda.empty_cache()
-    kw = dict(block_q=blk, block_kv=blk, return_lse=True)
+    kw = dict(block_q=blk, block_kv=blk, return_lse=True, causal=causal)
     timed = {
         "segment_flash_attention": ("fwd", lambda: fa.segment_flash_attention(q, k, v, seg, **kw)),
         "segment_flash_attention_pruned": ("fwd", lambda: fa.segment_flash_attention_pruned(
@@ -1008,13 +1107,14 @@ def phase_times_training(rng, train_seg) -> dict:
             library_ms=t_lib_fwd if kind == "fwd" else t_lib_bwd, flops=flops, bytes=nbytes,
         )
         r = result[name]
-        print(f"[times] {name} rows={rows} cap={cap} block={blk} bf16 (training step 1): kernel_ms "
+        print(f"[times] {name} rows={rows} cap={cap} block={blk} heads={heads}/{kv_heads} "
+              f"d_head={d_head} causal={causal} bf16 ({label}): kernel_ms "
               f"{ms:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
               f"{r['bound_ms']:.5f} ({bound_by}) live tiles {live} visible pairs {pairs} "
               f"achieved {flops / ms / 1e9:.2f} TFLOP/s, bound share {r['bound_ms'] / ms:.4f}, "
               f"kernel/library {ms / r['library_ms']:.3f}")
-    return dict(result, shape=[rows, cap, HEADS, KV_HEADS, D_HEAD], block=blk, live_tiles=live,
-                visible_pairs=pairs)
+    return dict(result, shape=[rows, cap, heads, kv_heads, d_head], causal=causal, block=blk,
+                live_tiles=live, visible_pairs=pairs, max_abs_err=errs)
 
 
 def to_cpu(tree):
@@ -2336,6 +2436,339 @@ def phase_chaos(train_seg) -> dict:
     return launches
 
 
+def free_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def arch_olmo_train(rng) -> dict:
+    """Full-width OLMo-1B: ARCH_TRAIN_STEPS steps through the train launcher
+    (packed, the pruned route: K4 twice per layer with remat, K5 and K6
+    once), then one step's loss and gradients on the pruned and the dense
+    grid from the trained weights, which must be bitwise equal, and K1-K6
+    held against their plain versions at step 1's segment ids and OLMo's
+    heads."""
+    import math
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import Trainer, assemble_model_batch
+
+    t_run = time.perf_counter()
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(ARCH_TRAIN_ARGS))
+    model = trainer.model
+    cfg = model.cfg
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[archs] {cfg.name} train: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} norm {cfg.norm} "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params {cfg.dtype}")
+    reg, tracer = obs.default_registry(), obs.default_tracer()
+    reg.reset()
+    tracer.reset()
+    tracer.enable()  # the trainer then syncs the card at the end of each step
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    state, steps = trainer.train_epoch(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    tracer.disable()
+    step_s = [e["dur"] / 1e6 for e in tracer.events() if e["name"] == "train/step"]
+    tokens = reg.flat()["train_tokens_total"]
+    peak = torch.cuda.max_memory_allocated()
+    check(steps == ARCH_TRAIN_STEPS, f"{cfg.name}: {steps} steps run")
+    for rec in trainer.history:
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{cfg.name} step {rec['step']}: loss {rec['loss']} grad_norm {rec['grad_norm']}")
+        print(f"[archs] {cfg.name} {Trainer.format_log_line(rec)}")
+    n = cfg.n_layers * steps
+    want = {**dict.fromkeys(launches, 0), "segment_flash_attention_pruned": 2 * n,
+            "segment_flash_attention_bwd_pruned_dq": n, "segment_flash_attention_bwd_pruned_dkv": n}
+    check(launches == want, f"{cfg.name} train launches {launches} != {want}")
+    loss_tokens = [rec["tokens"] for rec in trainer.history]
+    print(f"[archs] {cfg.name} train: tokens/s {tokens / wall:.1f} ({tokens:.0f} real tokens in "
+          f"{wall:.3f}s), loss tokens/s over steps 2..{steps} {sum(loss_tokens[1:]) / sum(step_s[1:]):.1f}, "
+          f"step s {[round(t, 4) for t in step_s]}, max_memory_allocated {peak / 2**30:.3f} GiB, "
+          f"launches {launches}")
+
+    steps_iter = loader.epoch(0)
+    first = next(steps_iter)
+    steps_iter.close()
+    batch = assemble_model_batch(first, loader.layout, model.device)
+    leaves = tree_leaves(state["params"])
+    pinned, results = model.cfg, {}
+    for grid in ("pruned", "dense"):
+        model.cfg = dataclasses.replace(pinned, attn_grid=grid)
+        loss_sum, count = model.loss_sums(state["params"], batch)
+        results[grid] = (loss_sum.detach(), torch.autograd.grad(loss_sum / count, leaves))
+    model.cfg = pinned
+    (lp, gp), (ld, gd) = results["pruned"], results["dense"]
+    check(torch.equal(lp, ld) and all(torch.equal(a, b) for a, b in zip(gp, gd)),
+          f"{cfg.name}: the pruned and dense grids differ on step 1 (loss {lp.item()} vs {ld.item()})")
+    print(f"[archs] {cfg.name} step 1 {tuple(batch['tokens'].shape)}: pruned == dense bitwise, loss sum "
+          f"{lp.item():.6f} and all {len(gp)} gradients; {time.perf_counter() - t_run:.1f}s in all")
+    losses = [rec["loss"] for rec in trainer.history]
+    seg_np = batch["segments"].cpu().numpy()
+    del trainer, loader, model, state, results, gp, gd, batch, leaves
+    free_cuda()
+    errs = hold_kernels(rng, f"{cfg.name} step 1", seg_np, causal=cfg.causal, heads=cfg.n_heads,
+                        kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
+    return dict(launches=launches, tokens_per_s=tokens / wall, step_s=step_s, peak_gib=peak / 2**30,
+                losses=losses, max_abs_err=errs)
+
+
+def arch_hubert(rng) -> dict:
+    """Full-width HuBERT-XLarge on a packed batch of frame embeddings
+    (HUBERT_ROWS x HUBERT_FRAMES, bf16): one ``loss_sums`` with the
+    gradients of the mean loss (K4 twice per layer with remat, K5 and K6
+    once, all bidirectional at d_head 80), one encode (``LM.forward`` under
+    no_grad: K4 once per layer), and the loss on the dense grid bitwise
+    equal to the pruned grid's; then K1-K6 held against their plain
+    versions at the batch's segment ids and HuBERT's heads."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import LM
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.train.optimizer import global_norm, tree_leaves
+
+    cfg = get_config("hubert_xlarge")
+    model = LM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    seg_np, pos_np = long_segments(rng, HUBERT_ROWS, HUBERT_FRAMES)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    segments = torch.from_numpy(seg_np).cuda()
+    batch = dict(
+        embeds=torch.randn((HUBERT_ROWS, HUBERT_FRAMES, cfg.d_model), generator=gen, device="cuda")
+        .to(torch.bfloat16),
+        positions=torch.from_numpy(pos_np).cuda(), segments=segments,
+        labels=torch.randint(0, cfg.vocab_size, (HUBERT_ROWS, HUBERT_FRAMES), generator=gen, device="cuda"),
+        loss_mask=(segments > 0).float(),
+    )
+    leaves = tree_leaves(params)
+    print(f"[archs] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} d_head {cfg.d_head} causal {cfg.causal} norm {cfg.norm} act {cfg.act} "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params {cfg.dtype}; batch "
+          f"{HUBERT_ROWS} x {HUBERT_FRAMES} frames, {int(seg_np.max())} segments in a row at most, "
+          f"{int((seg_np > 0).sum())} valid frames")
+
+    def loss_and_grads():
+        loss_sum, count = model.loss_sums(params, batch)
+        return (loss_sum / count).detach(), torch.autograd.grad(loss_sum / count, leaves)
+
+    loss_and_grads()  # the first call at this shape: cuBLAS handles, the allocator's pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t = time.perf_counter()
+    loss, grads = loss_and_grads()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = dict(fa.LAUNCHES)
+    gnorm = global_norm(list(grads)).item()
+    peak = torch.cuda.max_memory_allocated()
+    del grads
+    n = cfg.n_layers
+    want = {**dict.fromkeys(launches, 0), "segment_flash_attention_pruned": 2 * n,
+            "segment_flash_attention_bwd_pruned_dq": n, "segment_flash_attention_bwd_pruned_dkv": n}
+    check(launches == want, f"{cfg.name} loss launches {launches} != {want}")
+    check(math.isfinite(loss.item()) and math.isfinite(gnorm), f"{cfg.name}: loss {loss} grad norm {gnorm}")
+    frames = int((seg_np > 0).sum())
+    with torch.no_grad():
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t = time.perf_counter()
+        logits = model.forward(params, batch)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t
+        encode_launches = dict(fa.LAUNCHES)
+        valid = segments > 0
+        check(bool(torch.isfinite(logits[valid][:, :cfg.vocab_size]).all()), f"{cfg.name}: encode not finite")
+        check(tuple(logits.shape) == (HUBERT_ROWS, HUBERT_FRAMES, padded_vocab(cfg.vocab_size)),
+              f"{cfg.name}: logits {tuple(logits.shape)}")
+        check(encode_launches["segment_flash_attention_pruned"] == n, f"encode launches {encode_launches}")
+        del logits
+        pruned = model.loss_sums(params, batch)[0]
+        model.cfg = dataclasses.replace(cfg, attn_grid="dense")
+        dense = model.loss_sums(params, batch)[0]
+        model.cfg = cfg
+    check(torch.equal(pruned, dense), f"{cfg.name}: pruned loss {pruned.item()} != dense {dense.item()}")
+    print(f"[archs] {cfg.name}: loss {loss.item():.6f} grad_norm {gnorm:.6f}, loss+grads "
+          f"{1e3 * step_s:.1f} ms ({frames / step_s:.1f} frames/s), encode {1e3 * encode_s:.1f} ms "
+          f"({frames / encode_s:.1f} frames/s), max_memory_allocated {peak / 2**30:.3f} GiB, launches "
+          f"{launches} (encode: K4 {encode_launches['segment_flash_attention_pruned']}); the loss sum on "
+          f"the dense grid == the pruned grid's bitwise ({pruned.item():.6f})")
+    del model, params, batch, leaves
+    free_cuda()
+    errs = hold_kernels(rng, cfg.name, seg_np, causal=cfg.causal, heads=cfg.n_heads,
+                        kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
+    return dict(launches=launches, loss=loss.item(), grad_norm=gnorm, step_s=step_s, encode_s=encode_s,
+                frames_per_s=frames / step_s, peak_gib=peak / 2**30, max_abs_err=errs)
+
+
+def serve_checks(tag: str, cfg, engine, wall: float, launches: dict) -> dict:
+    """Every request of ``engine`` finished with ids in the vocabulary, K4
+    launched n_layers times per prefill call and K1 never; prints and
+    returns tokens/s, tick ms and peak memory."""
+    import torch
+
+    st = engine.stats
+    peak = torch.cuda.max_memory_allocated()
+    check(st.finished == len(engine.requests), f"{tag}: {st.finished}/{len(engine.requests)} finished")
+    check(all(0 <= t < cfg.vocab_size for r in engine.requests.values() for t in r.generated),
+          f"{tag}: generated ids outside the vocabulary")
+    check(launches["segment_flash_attention_pruned"] == st.prefill_calls * cfg.n_layers
+          and launches["segment_flash_attention"] == 0,
+          f"{tag}: launches {launches}, prefill calls {st.prefill_calls} x {cfg.n_layers} layers")
+    print(f"{tag}: tokens/s {st.generated_tokens / wall:.1f} ({st.generated_tokens} tokens in "
+          f"{wall:.3f}s), {st.ticks} ticks ({1e3 * wall / st.ticks:.2f} ms each), decode steps "
+          f"{st.decode_steps}, prefill calls {st.prefill_calls}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB, launches {launches}")
+    return dict(launches=launches, tokens_per_s=st.generated_tokens / wall, tick_ms=1e3 * wall / st.ticks,
+                peak_gib=peak / 2**30)
+
+
+def serve_holds(rng, cfg, segments: list) -> dict:
+    """K1 and K4 held against the plain forward at each prefill bucket
+    (rows, cap) that a serving run used, at its first call's segment ids,
+    with the model's heads; returns the bf16 errors, the worst per kernel."""
+    errs: dict = {}
+    firsts = {}
+    for seg in segments:
+        firsts.setdefault(tuple(seg.shape), seg)
+    for shape, seg in sorted(firsts.items()):
+        got = hold_kernels(rng, f"{cfg.name} prefill bucket", seg, causal=cfg.causal, backward=False,
+                           heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
+        errs = {name: max(errs.get(name, 0.0), e) for name, e in got.items()}
+    return errs
+
+
+def arch_serve_launcher(rng, arch: str) -> dict:
+    """The whole ``arch`` served as a user serves it, ``python -m
+    repro_torch.launch.serve --arch <arch>`` with its defaults (the serving
+    phase's trace, seed-0 weights); the launcher returns its engine and wall
+    seconds.  K1 and K4 are then held against the plain forward at each
+    prefill bucket the engine used (seeded packing: the launcher keeps no
+    segment ids)."""
+    import io
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_launcher
+
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with contextlib.redirect_stdout(out):
+        engine, wall = serve_launcher.main(["--arch", arch])
+    launches = dict(fa.LAUNCHES)
+    for line in out.getvalue().splitlines():
+        print(f"[archs] launch.serve --arch {arch}: {line}")
+    cfg = engine.model.cfg
+    print(f"[archs] {cfg.name} serve: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff} "
+          f"{sum(p.numel() for p in engine.model.parameters()) / 1e9:.3f}B params {cfg.dtype}")
+    result = serve_checks(f"[archs] {cfg.name} serve", cfg, engine, wall, launches)
+    buckets = [packed_segments(rng, rows, cap) for rows, cap in engine.prefill_traces]
+    del engine
+    free_cuda()
+    result["max_abs_err"] = serve_holds(rng, cfg, buckets)
+    return result
+
+
+def arch_serve_cut(rng, arch: str, layers: int) -> dict:
+    """``arch`` at full width with its depth cut to ``layers`` serving the
+    serving phase's whole trace through the engine (the launcher takes no
+    depth); for an MoE model also the (token, expert) pairs dropped at
+    capacity, in the first prefill and in the run.  K1 and K4 are then held
+    against the plain forward at the segment ids of each prefill bucket's
+    first call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import LM, moe
+    from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[archs] {cfg.name} serve: {cfg.n_layers} layers (depth cut from {get_config(arch).n_layers}) "
+          f"d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff}"
+          + (f" experts {cfg.n_experts} top-{cfg.top_k} moe_d_ff {cfg.moe_d_ff}" if cfg.n_experts else "")
+          + f" {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params {cfg.dtype}, "
+          f"init {time.perf_counter() - t0:.1f}s")
+    trace = synth_request_trace(ARCH_SERVE_REQUESTS, vocab=cfg.vocab_size, prompt_min=8, prompt_max=96,
+                                new_min=2, new_max=48, seed=0)
+    engine = ContinuousBatchingEngine(model, params, ServeConfig(num_slots=8, max_len=256, l_max=1024,
+                                                                 lookahead=32))
+    segments: list = []
+    record_prefill(engine, segments=segments)
+    drops: list = []
+    slots = moe.dispatch_slots
+
+    def counted(ids, n_local, capacity):
+        dest_e, dest_c, keep = slots(ids, n_local, capacity)
+        drops.append((ids.numel(), capacity, (~keep).sum()))
+        return dest_e, dest_c, keep
+
+    for p, n in trace:
+        engine.submit(p, n)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    moe.dispatch_slots = counted
+    try:
+        t = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        moe.dispatch_slots = slots
+    result = serve_checks(f"[archs] {cfg.name} serve", cfg, engine, wall, dict(fa.LAUNCHES))
+    if cfg.n_experts:
+        pairs, capacity = drops[0][0], drops[0][1]
+        result["first_prefill_drops"] = sum(int(d[2]) for d in drops[:cfg.n_layers])
+        result["run_drops"] = sum(int(d[2]) for d in drops)
+        print(f"[archs] {cfg.name} first prefill: {pairs} (token, expert) pairs a layer at capacity "
+              f"{capacity}, {result['first_prefill_drops']} dropped over {cfg.n_layers} layer(s); "
+              f"{result['run_drops']} of {sum(d[0] for d in drops)} pairs dropped over the run's "
+              f"{len(drops) // cfg.n_layers} MoE calls a layer (prefills and decode steps)")
+    del model, params, engine
+    free_cuda()
+    result["max_abs_err"] = serve_holds(rng, cfg, segments)
+    return result
+
+
+def phase_archs(rng) -> dict:
+    """The six added architectures at full width: OLMo-1B training, HuBERT-
+    XLarge's loss, gradients and encode, DeepSeek-7B serving whole, Yi-34B,
+    Chameleon-34B and Arctic-480B serving with their depth cut (ARCH_SERVE_CUT).
+    The kernels' counts are set to 0 before each run and read after it;
+    returns each run's result by name."""
+    runs = {"olmo_1b_train": arch_olmo_train(rng), "hubert_xlarge_loss": arch_hubert(rng),
+            "deepseek_7b_serve": arch_serve_launcher(rng, "deepseek_7b")}
+    for arch, layers in ARCH_SERVE_CUT.items():
+        runs[f"{arch}_serve"] = arch_serve_cut(rng, arch, layers)
+    return runs
+
+
 def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     """(FLOPs, bytes) of the least work of one K7 call with the final state:
     C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
@@ -2460,9 +2893,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    def timed(phase, *args):
+    def timed(phase, *args, **kwargs):
         t = time.perf_counter()
-        out = phase(*args)
+        out = phase(*args, **kwargs)
         print(f"[phase] {phase.__name__} {time.perf_counter() - t:.1f}s")
         return out
 
@@ -2481,9 +2914,17 @@ def main() -> None:
     dp_launches = timed(phase_dp_train)
     probes = timed(phase_probes, train_seg)
     chaos_launches = timed(phase_chaos, train_seg)
+    archs = timed(phase_archs, np.random.default_rng(8))
     serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = timed(phase_times_training, np.random.default_rng(3), train_seg)
+    arch_times = [timed(phase_times_training, np.random.default_rng(9 + i),
+                        long_segments(np.random.default_rng(11 + i), 2, 4096)[0], label=label, **widths)
+                  for i, (label, widths) in enumerate(ARCH_TIME_SHAPES)]
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
+    for held in [*(rec["max_abs_err"] for rec in archs.values()), times["max_abs_err"],
+                 *(at["max_abs_err"] for at in arch_times)]:
+        for kname, err in held.items():
+            max_err[kname] = max(max_err[kname], err)
     kernels = []
     for kname, (source, replaces, grid, _) in KERNELS.items():
         t = times[kname]
@@ -2507,6 +2948,15 @@ def main() -> None:
             entry.update(launches_autotune_run=probes["launches"][kname],
                          launches_autotune_run_note=f"{PROBE_STEPS} training steps with "
                                                     "--attn-autotune, its block probes included")
+        entry.update(
+            launches_archs={run: rec["launches"][kname] for run, rec in archs.items()},
+            launches_archs_note="per run of the archs phase: OLMo-1B 4 training steps, HuBERT-XLarge "
+                                "one loss with its gradients, the four served models' engine runs",
+            arch_shapes=[dict(label=label, shape=at["shape"], causal=at["causal"], ms=at[kname]["ms"],
+                              plain_ms=at[kname]["plain_ms"], bound_ms=at[kname]["bound_ms"],
+                              bound_by=at[kname]["bound_by"], library_ms=at[kname]["library_ms"])
+                         for (label, _), at in zip(ARCH_TIME_SHAPES, arch_times)],
+        )
         if kname in serve_launches:
             entry.update(
                 launches_serving=serve_launches[kname],

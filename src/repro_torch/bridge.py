@@ -12,7 +12,11 @@ axis is unstacked (and restacked) in layer order.  Projections keep the
 ``(d_in, d_out)`` layout on both sides.  Leaves keep their dtypes: an SSM
 layer's mixer (``in_z, in_x, in_b, in_c, in_dt, conv_w, dt_bias, a_log,
 d_skip, out_norm, out_proj``) has fp32 ``a_log``, ``dt_bias`` and ``d_skip``
-beside projections in the model dtype, and no FFN group.
+beside projections in the model dtype, and no FFN group; an MoE layer's
+``moe`` group has an fp32 ``router`` beside ``(E, d, ff)`` / ``(E, ff, d)``
+expert slabs (and a ``shared`` group with a shared expert).  A model fed
+input embeddings has no ``embed``, a non-parametric norm is an empty group,
+and a unit of ``moe_every`` layers holds them as ``sub0``, ``sub1``, ….
 """
 
 from __future__ import annotations
@@ -47,12 +51,13 @@ def params_from_jax(np_params: dict, cfg, device=None) -> dict:
     for u, unit in enumerate(plan.unit_layers):
         for j, layer_idx in enumerate(unit):
             layers[layer_idx] = _map(np_params["stack"][f"sub{j}"], lambda a: _tensor(a[u], device))
-    return {
-        "embed": _tensor(np_params["embed"], device),
-        "unembed": _tensor(np_params["unembed"], device),
-        "final_norm": _map(np_params["final_norm"], lambda a: _tensor(a, device)),
-        "layers": layers,
-    }
+    tree = {"embed": _tensor(np_params["embed"], device)} if "embed" in np_params else {}
+    tree.update(
+        unembed=_tensor(np_params["unembed"], device),
+        final_norm=_map(np_params["final_norm"], lambda a: _tensor(a, device)),
+        layers=layers,
+    )
+    return tree
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
@@ -69,12 +74,9 @@ def jax_layout(tree: dict, cfg) -> dict:
     stack = {}
     for j in range(len(plan.unit_layers[0])):
         stack[f"sub{j}"] = _zip([tree["layers"][unit[j]] for unit in plan.unit_layers])
-    return {
-        "embed": tree["embed"],
-        "unembed": tree["unembed"],
-        "final_norm": tree["final_norm"],
-        "stack": stack,
-    }
+    out = {"embed": tree["embed"]} if "embed" in tree else {}
+    out.update(unembed=tree["unembed"], final_norm=tree["final_norm"], stack=stack)
+    return out
 
 
 def _zip(trees: list):

@@ -1,4 +1,6 @@
-"""Architecture configs (``--arch <id>``).  Ported so far: qwen3_0_6b, mamba2_130m."""
+"""Architecture configs (``--arch <id>``).  The JAX package's ten but
+deepseek_v3_671b (MLA) and jamba_1_5_large (the hybrid period), which are
+not ported yet."""
 
 from __future__ import annotations
 
@@ -6,9 +8,27 @@ import importlib
 
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ("qwen3_0_6b", "mamba2_130m")
+ARCH_IDS = (
+    "chameleon_34b",
+    "qwen3_0_6b",
+    "olmo_1b",
+    "deepseek_7b",
+    "yi_34b",
+    "arctic_480b",
+    "mamba2_130m",
+    "hubert_xlarge",
+)
 
-_ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "mamba2-130m": "mamba2_130m"}
+_ALIASES = {
+    "chameleon-34b": "chameleon_34b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "olmo-1b": "olmo_1b",
+    "deepseek-7b": "deepseek_7b",
+    "yi-34b": "yi_34b",
+    "arctic-480b": "arctic_480b",
+    "mamba2-130m": "mamba2_130m",
+    "hubert-xlarge": "hubert_xlarge",
+}
 
 
 def _module(arch: str):

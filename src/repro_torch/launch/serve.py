@@ -26,7 +26,9 @@ from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Serve the trace; returns the engine (its requests and stats) and the
+    wall seconds of the run, as ``_serve`` does."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_0_6b")
     ap.add_argument("--smoke", action="store_true")
@@ -60,16 +62,18 @@ def main(argv=None) -> None:
         scrape = obs.start_scrape_server(args.telemetry_port)
         print(f"[serve] telemetry scrape: {scrape.url}")
     try:
-        _serve(args, reporter)
+        return _serve(args, reporter)
     finally:
         if scrape is not None:
             scrape.stop()
 
 
-def _serve(args, reporter) -> None:
+def _serve(args, reporter) -> tuple[ContinuousBatchingEngine, float]:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
     model = LM(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
 
@@ -125,6 +129,7 @@ def _serve(args, reporter) -> None:
         )
         for kind, path in sorted(paths.items()):
             print(f"[serve] telemetry {kind}: {path}")
+    return engine, wall
 
 
 if __name__ == "__main__":

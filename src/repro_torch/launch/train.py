@@ -76,6 +76,11 @@ def build(args) -> tuple[Trainer, OnlineDynamicLoader]:
     ``--layout auto`` runs its calibration probe here."""
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.input_embeds:
+        # The JAX launcher fails inside its first step (KeyError: 'embeds').
+        raise ValueError(f"{cfg.name} takes input embeddings: the data path makes token "
+                         "batches only, so the launcher cannot train it (use LM.loss_sums on "
+                         "an embeds batch)")
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl, attn_grid=args.attn_grid,
                               attn_autotune=args.attn_autotune)
     model = LM(cfg, device=device)

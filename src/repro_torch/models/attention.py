@@ -153,17 +153,18 @@ def _flash_blocks(cfg, s: int, b: int, dtype, has_segments: bool, grid: str, dev
 
 def warm_flash_blocks(cfg, batch: dict, dtype) -> None:
     """Run the measured block probe for the shape of ``batch`` (the model's
-    ``tokens`` and, when packed, ``segments``) outside autograd, so the
-    forward that follows finds its schedule in the cache.  A no-op unless
-    ``attn_autotune`` is set and the batch takes the flash route."""
+    ``tokens`` or ``embeds`` and, when packed, ``segments``) outside
+    autograd, so the forward that follows finds its schedule in the cache.
+    A no-op unless ``attn_autotune`` is set and the batch takes the flash
+    route."""
     segments = batch.get("segments")
     if not (cfg.attn_autotune and cfg.uses_attention
             and use_flash_attention(cfg, segments, None)):
         return
-    tokens = batch["tokens"]
+    inputs = batch["embeds"] if cfg.input_embeds else batch["tokens"]
     with torch.no_grad():
-        _flash_blocks(cfg, tokens.shape[1], tokens.shape[0], dtype, segments is not None,
-                      resolve_flash_grid(cfg, segments), tokens.device)
+        _flash_blocks(cfg, inputs.shape[1], inputs.shape[0], dtype, segments is not None,
+                      resolve_flash_grid(cfg, segments), inputs.device)
 
 
 # ------------------------------------------------------------------------------

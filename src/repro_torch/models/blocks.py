@@ -2,8 +2,11 @@
 
 The JAX package scans its stack over units of layers; here the stack is a
 Python loop over unstacked layers, each with its own parameters and cache.
-Ported so far: the dense family (GQA attention + gated MLP) and the SSM
-family (a Mamba-2 mixer and no FFN).
+Ported: GQA attention with a dense MLP (families ``dense``, ``vlm`` and
+``encoder``) or an MoE FFN with an optional dense residual MLP (``moe``,
+MoE on every ``moe_every``-th layer), and the SSM family (a Mamba-2 mixer
+and no FFN).  Not yet: leading dense layers (``first_k_dense``), the hybrid
+period and MLA.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Any
 
 from repro_torch.models.attention import gqa_attention, init_kv_cache, make_attention_params
 from repro_torch.models.layers import apply_mlp, apply_norm, make_mlp_params, make_norm_params
+from repro_torch.models.moe import make_moe_params, moe_ffn
 from repro_torch.models.ssm import apply_ssm_block, init_ssm_cache, make_ssm_params
 
 Params = dict[str, Any]
@@ -29,11 +33,17 @@ class StackPlan:
 
 
 def stack_plan(cfg) -> StackPlan:
-    """The JAX package's unit structure; the dense and SSM families are one
-    layer per unit with no prefix (the bridge unstacks by it)."""
-    if cfg.family not in ("dense", "ssm") or cfg.n_experts or cfg.first_k_dense:
+    """The JAX package's unit structure (the bridge unstacks by it): one layer
+    per unit, or ``moe_every`` layers when MoE skips layers; no prefix."""
+    if (cfg.family not in ("dense", "vlm", "encoder", "moe", "ssm") or cfg.first_k_dense
+            or cfg.attn_kind == "mla"):
         raise NotImplementedError(f"family {cfg.family!r} of {cfg.name} is not ported yet")
-    return StackPlan(prefix_layers=(), unit_layers=tuple((l,) for l in range(cfg.n_layers)))
+    period = cfg.moe_every if cfg.n_experts and cfg.moe_every > 1 else 1
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole units of {period}")
+    layers = range(cfg.n_layers)
+    units = tuple(tuple(layers[i:i + period]) for i in range(0, cfg.n_layers, period))
+    return StackPlan(prefix_layers=(), unit_layers=units)
 
 
 def make_layer_params(generator, cfg, layer_idx: int, dtype, device) -> Params:
@@ -42,7 +52,12 @@ def make_layer_params(generator, cfg, layer_idx: int, dtype, device) -> Params:
         p["mixer"] = make_attention_params(generator, cfg, dtype, device)
     else:
         p["mixer"] = make_ssm_params(generator, cfg, dtype, device)
-    if cfg.d_ff:
+    if cfg.layer_is_moe(layer_idx):
+        p["norm_ffn"] = make_norm_params(cfg, dtype, device)
+        p["moe"] = make_moe_params(generator, cfg, dtype, device)
+        if cfg.dense_residual:
+            p["mlp"] = make_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
+    elif cfg.d_ff:
         p["norm_ffn"] = make_norm_params(cfg, dtype, device)
         p["mlp"] = make_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
     return p
@@ -67,7 +82,12 @@ def layer_forward(params: Params, x, cfg, layer_idx: int, positions, segments, c
     if "norm_ffn" not in params:  # FFN-free block (mamba2: SSD mixer only)
         return x, new_cache
     h = apply_norm(params["norm_ffn"], x, cfg)
-    return x + apply_mlp(params["mlp"], h, cfg.act, cfg.gated_mlp), new_cache
+    if cfg.layer_is_moe(layer_idx):
+        dense = params["mlp"] if cfg.dense_residual else None
+        ffn = moe_ffn(params["moe"], h, cfg, dense_params=dense)
+    else:
+        ffn = apply_mlp(params["mlp"], h, cfg.act, cfg.gated_mlp)
+    return x + ffn, new_cache
 
 
 def init_layer_cache(cfg, layer_idx: int, batch: int, max_len: int, dtype, device):

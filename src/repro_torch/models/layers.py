@@ -1,4 +1,4 @@
-"""Primitive layers: norms, rotary embeddings, MLP, init, the masked loss."""
+"""Primitive layers: norms (RMS, LN), rotary embeddings, MLP, init, the masked loss."""
 
 from __future__ import annotations
 
@@ -32,14 +32,38 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float = 1e-6) ->
     return y.to(dt)
 
 
+def layer_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor | None,
+    bias: torch.Tensor | None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Parametric LN, or OLMo's non-parametric LN when weight/bias are None;
+    fp32 inside, population variance (``jnp.var``)."""
+    dt = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
 def make_norm_params(cfg, dtype, device) -> Params:
+    if cfg.norm == "ln_nonparam":
+        return {}
     return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
 
 
 def apply_norm(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return rms_norm(x, params.get("scale"))
+    if cfg.norm == "rms":
+        return rms_norm(x, params.get("scale"))
+    if cfg.norm == "ln":
+        return layer_norm(x, params.get("scale"), None)
+    return layer_norm(x, None, None)  # non-parametric (OLMo)
 
 
 # -- rotary --------------------------------------------------------------------
@@ -66,10 +90,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # -- MLP -----------------------------------------------------------------------
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
 def act_fn(name: str):
-    if name != "silu":
-        raise NotImplementedError(f"activation {name!r} is not ported yet")
-    return F.silu
+    """silu, or gelu in its tanh form (``jax.nn.gelu``'s default)."""
+    return F.silu if name == "silu" else _gelu_tanh
 
 
 def make_mlp_params(generator, d_model: int, d_ff: int, gated: bool, dtype, device) -> Params:

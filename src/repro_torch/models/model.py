@@ -10,17 +10,23 @@ engine and the tests can hand it weights from :meth:`LM.init`,
      "layers": [{"norm_mixer", "mixer", "norm_ffn", "mlp"}, ...]}
 
 with every projection stored ``(d_in, d_out)`` and applied as ``x @ W``, the
-JAX package's layout.  Every weight is a trainable ``nn.Parameter``; the
-serving steps run under ``torch.no_grad()``, so they record no graph.
+JAX package's layout.  A non-parametric norm (OLMo) is an empty group; an
+MoE layer holds ``moe`` (``router``, the ``(E, d, ff)`` expert slabs and,
+with a shared expert, a ``shared`` group) beside its dense residual ``mlp``
+(Arctic); a model fed input embeddings (HuBERT) has no ``embed``.  Every
+weight is a trainable ``nn.Parameter``; the serving steps run under
+``torch.no_grad()``, so they record no graph.
 
 Entry points: ``forward`` → fp32 logits and ``loss_sums`` → (loss_sum,
 token_count) for training; ``init_caches``, ``prefill_packed`` and
 ``decode_step_slots`` for the continuous-batching engine; ``prefill`` and
 ``decode_step`` (one frontier for the whole batch) for per-request serving,
 the path of the SSM family, which the engine does not serve.  Batches are
-dicts: ``tokens`` (B, S), ``labels``, ``loss_mask`` and, for the packed
-layout, ``positions`` and ``segments``.  The layer tree of the SSM family is
-``{"norm_mixer", "mixer"}``: a Mamba-2 mixer and no FFN.
+dicts: ``tokens`` (B, S) or, for a model fed input embeddings, ``embeds``
+(B, S, d); ``labels``, ``loss_mask`` and, for the packed layout,
+``positions`` and ``segments``.  An encoder has no decode: the serving
+entry points refuse it, as the JAX package has none.  The layer tree of the
+SSM family is ``{"norm_mixer", "mixer"}``: a Mamba-2 mixer and no FFN.
 """
 
 from __future__ import annotations
@@ -55,8 +61,23 @@ def padded_vocab(vocab: int) -> int:
     return (vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN * VOCAB_ALIGN
 
 
-def _parameters(group: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t) for k, t in group.items()})
+class _Group(nn.Module):
+    """One group of the parameter tree: its tensors become parameters and its
+    dicts nested groups, in the tree's key order; an empty dict is an empty
+    group."""
+
+    def __init__(self, tree: dict) -> None:
+        super().__init__()
+        self.keys = tuple(tree)
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, _Group(value))
+            else:
+                self.register_parameter(key, nn.Parameter(value))
+
+    def tree(self) -> dict:
+        return {key: self._modules[key].tree() if key in self._modules else self._parameters[key]
+                for key in self.keys}
 
 
 class LM(nn.Module):
@@ -83,42 +104,42 @@ class LM(nn.Module):
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         vp = padded_vocab(cfg.vocab_size)
-        return self.load_params({
-            "final_norm": make_norm_params(cfg, dt, dev),
-            "embed": dense_init(generator, vp, cfg.d_model, dt, dev),
-            "unembed": dense_init(generator, cfg.d_model, vp, dt, dev),
-            "layers": [make_layer_params(generator, cfg, l, dt, dev) for l in range(cfg.n_layers)],
-        })
+        params: Params = {"final_norm": make_norm_params(cfg, dt, dev)}
+        if not cfg.input_embeds:
+            params["embed"] = dense_init(generator, vp, cfg.d_model, dt, dev)
+        params["unembed"] = dense_init(generator, cfg.d_model, vp, dt, dev)
+        params["layers"] = [make_layer_params(generator, cfg, l, dt, dev)
+                            for l in range(cfg.n_layers)]
+        return self.load_params(params)
 
     def load_params(self, params: Params) -> Params:
         """Hold ``params`` (tensors on the model's device) as this module's
         weights; returns the tree view of them."""
-        vp = padded_vocab(self.cfg.vocab_size)
-        if tuple(params["embed"].shape) != (vp, self.cfg.d_model):
-            raise ValueError(f"embed shape {tuple(params['embed'].shape)} != {(vp, self.cfg.d_model)}")
-        if len(params["layers"]) != self.cfg.n_layers:
-            raise ValueError(f"{len(params['layers'])} layers != n_layers {self.cfg.n_layers}")
-        if params["embed"].device != self.device:
-            raise ValueError(f"params on {params['embed'].device}, model on {self.device}")
-        self.embed = nn.Parameter(params["embed"])
+        cfg = self.cfg
+        vp = padded_vocab(cfg.vocab_size)
+        if ("embed" in params) == cfg.input_embeds:
+            raise ValueError(f"{cfg.name}: an embed table is {'not ' * cfg.input_embeds}expected "
+                             f"(input_embeds={cfg.input_embeds})")
+        if "embed" in params and tuple(params["embed"].shape) != (vp, cfg.d_model):
+            raise ValueError(f"embed shape {tuple(params['embed'].shape)} != {(vp, cfg.d_model)}")
+        if tuple(params["unembed"].shape) != (cfg.d_model, vp):
+            raise ValueError(f"unembed shape {tuple(params['unembed'].shape)} != {(cfg.d_model, vp)}")
+        if len(params["layers"]) != cfg.n_layers:
+            raise ValueError(f"{len(params['layers'])} layers != n_layers {cfg.n_layers}")
+        if params["unembed"].device != self.device:
+            raise ValueError(f"params on {params['unembed'].device}, model on {self.device}")
+        self.embed = None if cfg.input_embeds else nn.Parameter(params["embed"])
         self.unembed = nn.Parameter(params["unembed"])
-        self.final_norm = _parameters(params["final_norm"])
-        self.layers = nn.ModuleList(
-            nn.ModuleDict({name: _parameters(group) for name, group in layer.items()})
-            for layer in params["layers"]
-        )
+        self.final_norm = _Group(params["final_norm"])
+        self.layers = nn.ModuleList(_Group(layer) for layer in params["layers"])
         return self.params
 
     @property
     def params(self) -> Params:
-        return {
-            "embed": self.embed,
-            "unembed": self.unembed,
-            "final_norm": dict(self.final_norm),
-            "layers": [
-                {name: dict(group) for name, group in layer.items()} for layer in self.layers
-            ],
-        }
+        tree: Params = {} if self.embed is None else {"embed": self.embed}
+        tree.update(unembed=self.unembed, final_norm=self.final_norm.tree(),
+                    layers=[layer.tree() for layer in self.layers])
+        return tree
 
     # -- stack ------------------------------------------------------------------
     def _run_stack(self, params, x, positions, segments, caches, cache_index, dest_slot=None):
@@ -149,15 +170,19 @@ class LM(nn.Module):
         return (x @ params["unembed"]).float()
 
     # -- training ---------------------------------------------------------------
+    def _embed(self, params: Params, batch: dict) -> torch.Tensor:
+        if self.cfg.input_embeds:
+            return batch["embeds"].to(self.dtype)
+        return params["embed"][batch["tokens"]]
+
     def forward(self, params: Params, batch: dict) -> torch.Tensor:
         """Logits over the padded vocabulary; the padding columns carry a
         -1e9 bias so they never win a softmax."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
+        x = self._embed(params, batch)
+        b, s = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        x = params["embed"][tokens]
+            positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         x = self._train_stack(params, x, positions, batch.get("segments"))
         x = apply_norm(params["final_norm"], x, self.cfg)
         logits = x @ params["unembed"]
@@ -179,6 +204,10 @@ class LM(nn.Module):
         )
 
     # -- serving ------------------------------------------------------------------
+    def _require_decode(self) -> None:
+        if not self.cfg.has_decode:
+            raise ValueError(f"{self.cfg.name} is encoder-only: no decode step")
+
     def init_caches(self, batch: int, max_len: int) -> list:
         return [
             init_layer_cache(self.cfg, l, batch, max_len, self.dtype, self.device)
@@ -193,6 +222,7 @@ class LM(nn.Module):
         Attention layers take the slot-scatter path with one segment per
         row and row i's K/V landing in cache row i; SSM layers run the
         chunked SSD from a zero state and keep its final state."""
+        self._require_decode()
         b, s = tokens.shape
         caches = self.init_caches(b, max_len)
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -220,6 +250,7 @@ class LM(nn.Module):
         within-segment position (padding points out of range and is
         dropped).  Returns the full-stream fp32 logits and the caches.
         """
+        self._require_decode()
         x = params["embed"][tokens]
         x, caches = self._run_stack(
             params, x, positions, segments, caches, None, dest_slot=dest_slot
@@ -236,6 +267,7 @@ class LM(nn.Module):
         """One decode step against per-slot cache frontiers: every slot sits
         at its own depth ``lengths[i]``, so admission and eviction never
         change the step's shape."""
+        self._require_decode()
         s = tokens.shape[1]
         x = params["embed"][tokens]
         positions = lengths.to(torch.int32)[:, None] + torch.arange(

@@ -1,5 +1,6 @@
-"""Card-only checks of the port: the CUDA kernels, the engine, a train step,
-the streaming data path's staging of step arrays on the card, the SSM
+"""Card-only checks of the port: the CUDA kernels (also at the added
+architectures' head layouts and masks), the engine, a train step, the MoE
+model's forward, the streaming data path's staging of step arrays on the card, the SSM
 model's prefill and decode, the SSD's autograd Function, a bf16 SSM
 checkpoint, the tile census against the card's liveness tables and a
 train step through a transient injected gather fault on the GPU.
@@ -35,7 +36,7 @@ from repro_torch.kernels.ref import (
     segment_flash_attention_ref,
     ssd_chunked_ref,
 )
-from repro_torch.models import LM
+from repro_torch.models import LM, moe
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves
 from repro_torch.core.layout import global_batch_arrays
@@ -69,15 +70,27 @@ def _inputs(seed, b, s, h, kv, d, dtype):
     return (*qkv, torch.from_numpy(seg).cuda())
 
 
+# (B, S, H, KV, D), q scale, causal: the serving and training layouts, and
+# the added architectures' head layouts and masks.
+_ARCH_CASES = [
+    ((2, 256, 16, 16, 80), 1.0, False),  # HuBERT-XLarge's heads: MHA, d_head 80, bidirectional
+    ((2, 256, 14, 2, 128), 1.0, True),  # a GQA group of 7 (Yi-34B, Arctic-480B: 56 over 8)
+    ((2, 256, 14, 2, 80), 1.0, False),
+    ((2, 256, 8, 8, 128), 1.0, True),  # group 1 (OLMo-1B, DeepSeek-7B: MHA)
+]
+_ARCH_IDS = ["d80-mha-noncausal", "group7", "group7-d80-noncausal", "group1"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,q_scale", [
-    ((1, 64, 16, 8, 128), 1.0), ((8, 256, 16, 8, 128), 1.0), ((3, 96, 4, 2, 64), 1.0),
-    ((2, 200, 4, 1, 32), 1.0),
-    ((2, 256, 16, 8, 128), 4.0),  # peaked softmax: P near one-hot
-    ((2, 256, 16, 2, 128), 1.0),  # a GQA group of 8
-], ids=["1x64", "8x256", "3x96-d64", "2x200-block40", "2x256-peaked", "2x256-group8"])
-def test_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
+@pytest.mark.parametrize("shape,q_scale,causal", [
+    ((1, 64, 16, 8, 128), 1.0, True), ((8, 256, 16, 8, 128), 1.0, True), ((3, 96, 4, 2, 64), 1.0, True),
+    ((2, 200, 4, 1, 32), 1.0, True),
+    ((2, 256, 16, 8, 128), 4.0, True),  # peaked softmax: P near one-hot
+    ((2, 256, 16, 2, 128), 1.0, True),  # a GQA group of 8
+    *_ARCH_CASES,
+], ids=["1x64", "8x256", "3x96-d64", "2x200-block40", "2x256-peaked", "2x256-group8", *_ARCH_IDS])
+def test_kernels_vs_plain_and_bitexact(dtype, shape, q_scale, causal):
     """K1 (dense) and K4 (pruned) against the plain forward on valid rows
     (out at the dtype's tolerance, lse at 2e-5), K4 == K1 bit for bit, and
     exactly zero output on all-padding rows.  In bf16 both run on the tensor
@@ -88,11 +101,11 @@ def test_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
     q, k, v, seg = _inputs(0, b, s, h, kv, d, dtype)
     q = (q.float() * q_scale).to(dtype)
     blk = fa.select_block(s, 128)  # 200 -> 40: a block that is not a power of two
+    kw = dict(block_q=blk, block_kv=blk, causal=causal)
     fa.reset_launches()
-    o1, l1 = fa.segment_flash_attention(q, k, v, seg, block_q=blk, block_kv=blk, return_lse=True)
-    o4, l4 = fa.segment_flash_attention_pruned(q, k, v, seg, block_q=blk, block_kv=blk,
-                                               return_lse=True)
-    ro, rl = segment_flash_attention_ref(q, k, v, seg, return_lse=True)
+    o1, l1 = fa.segment_flash_attention(q, k, v, seg, return_lse=True, **kw)
+    o4, l4 = fa.segment_flash_attention_pruned(q, k, v, seg, return_lse=True, **kw)
+    ro, rl = segment_flash_attention_ref(q, k, v, seg, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {**dict.fromkeys(fa.LAUNCHES, 0),
                            "segment_flash_attention": 1, "segment_flash_attention_pruned": 1}
@@ -106,13 +119,14 @@ def test_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,q_scale", [
-    ((1, 64, 16, 8, 128), 1.0), ((2, 256, 16, 8, 128), 1.0), ((3, 96, 4, 2, 64), 1.0),
-    ((2, 200, 4, 1, 32), 1.0),
-    ((2, 256, 16, 8, 128), 4.0),  # peaked softmax: P near one-hot, its bf16 rounding at its worst
-    ((2, 256, 16, 2, 128), 1.0),  # a GQA group of 8
-], ids=["1x64", "2x256", "3x96-d64", "2x200-block40", "2x256-peaked", "2x256-group8"])
-def test_backward_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
+@pytest.mark.parametrize("shape,q_scale,causal", [
+    ((1, 64, 16, 8, 128), 1.0, True), ((2, 256, 16, 8, 128), 1.0, True), ((3, 96, 4, 2, 64), 1.0, True),
+    ((2, 200, 4, 1, 32), 1.0, True),
+    ((2, 256, 16, 8, 128), 4.0, True),  # peaked softmax: P near one-hot, its bf16 rounding at its worst
+    ((2, 256, 16, 2, 128), 1.0, True),  # a GQA group of 8
+    *_ARCH_CASES,
+], ids=["1x64", "2x256", "3x96-d64", "2x200-block40", "2x256-peaked", "2x256-group8", *_ARCH_IDS])
+def test_backward_kernels_vs_plain_and_bitexact(dtype, shape, q_scale, causal):
     """K2/K3 (dense) and K5/K6 (pruned) against the plain backward on valid
     rows, K5 == K2 and K6 == K3 bit for bit, and exactly zero gradients on
     all-padding rows.  In bf16 both passes run on the tensor cores with P
@@ -123,14 +137,14 @@ def test_backward_kernels_vs_plain_and_bitexact(dtype, shape, q_scale):
     q, k, v, seg = _inputs(2, b, s, h, kv, d, dtype)
     q = (q.float() * q_scale).to(dtype)
     blk = fa.select_block(s, 128)
-    kw = dict(block_q=blk, block_kv=blk)
+    kw = dict(block_q=blk, block_kv=blk, causal=causal)
     out, lse = fa.segment_flash_attention(q, k, v, seg, return_lse=True, **kw)
     do = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(3), device="cuda",
                      dtype=torch.float32).to(dtype)
     fa.reset_launches()
     dense = fa.segment_flash_attention_bwd(q, k, v, seg, out, lse, do, **kw)
     pruned = fa.segment_flash_attention_bwd_pruned(q, k, v, seg, out, lse, do, **kw)
-    ref = segment_flash_attention_bwd_ref(q, k, v, seg, out, lse, do)
+    ref = segment_flash_attention_bwd_ref(q, k, v, seg, out, lse, do, causal=causal)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {**dict.fromkeys(fa.LAUNCHES, 0),
                            "segment_flash_attention_bwd_dq": 1, "segment_flash_attention_bwd_dkv": 1,
@@ -166,6 +180,122 @@ def test_dense_backward_without_segments(dtype, causal):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+
+
+def _routing_ties_only(cpu, card, tol: float, held) -> torch.Tensor:
+    """One MoE layer's routing on each side, ``(ids, router logits, kept)``:
+    (T, k) expert ids, (T, E) fp32 logits and (T, k) kept-at-capacity flags
+    of the same tokens.  On the tokens ``held`` (those no earlier change of
+    experts reached) the logits' difference stays within the dtype's
+    tolerance of their scale; a token takes another set of experts on the
+    card only where that set is also a top-k of the CPU's logits moved by at
+    most twice the token's logit difference (a tie within rounding); and a
+    token's pairs are kept or dropped alike on both sides unless an earlier
+    token (token-major, the order that fills capacity) that changed experts
+    or was not held sent a pair to one of its experts.  Returns the held
+    tokens that took another set of experts or kept other pairs."""
+    (cpu_ids, cpu_logits, cpu_kept), (card_ids, card_logits, card_kept) = cpu, card
+    delta = (cpu_logits - card_logits).abs().amax(dim=1)
+    scale = max(1.0, cpu_logits[held].abs().max().item())
+    assert delta[held].max().item() <= tol * scale, "router logits differ"
+    moved = held & (cpu_ids.sort(dim=1).values != card_ids.sort(dim=1).values).any(dim=1)
+    kth = torch.topk(cpu_logits, cpu_ids.shape[1], dim=1).values[:, -1]
+    tie = cpu_logits.gather(1, card_ids).amin(dim=1) >= kth - 2 * delta
+    assert bool(tie[moved].all()), f"tokens {torch.nonzero(moved & ~tie).flatten().tolist()} changed experts"
+    assert int(moved.sum()) <= len(moved) // 20, f"{int(moved.sum())} of {len(moved)} tokens changed experts"
+    touched: set = set()  # experts that a changed or not-held token sent a pair to, so far
+    for t in range(len(held)):
+        if held[t] and not moved[t]:
+            kept_cpu = set(cpu_ids[t][cpu_kept[t]].tolist())
+            kept_card = set(card_ids[t][card_kept[t]].tolist())
+            if kept_cpu != kept_card:
+                assert (kept_cpu ^ kept_card) <= touched, f"token {t}: other pairs kept, no earlier cause"
+                moved[t] = True
+        if moved[t] or not held[t]:
+            touched |= set(cpu_ids[t].tolist()) | set(card_ids[t].tolist())
+    return moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_arctic_forward_on_card_matches_cpu(dtype, monkeypatch):
+    """The Arctic-480B smoke (MoE top-2 with a dense residual) on a packed
+    batch: ``LM.forward`` on the card (K4 in every layer) against the CPU
+    (the kernels' plain versions), and two card runs bitwise equal (the MoE
+    dispatch writes distinct cells and its combine is a fixed-order sum: no
+    atomics).  Each layer's routing is recorded on both sides (ids, router
+    logits, pairs kept at capacity) and compared directly, so a token sent
+    to another expert shows even though the init repeats one expert draw,
+    as JAX's does.  fp32: ids and kept pairs equal in every layer, logits at
+    2e-5 (no TF32).  bf16: each side rounds its bf16 products and sums
+    apart, so the router sees inputs a few ulps apart; a token may take
+    other experts, or keep other pairs, only as ``_routing_ties_only``
+    allows, and such a token and, in later layers, the tokens after it in
+    its segment are left out of the logits' comparison.  On the others,
+    routed alike, what is left is rounding: they are held at 2e-2 of the
+    logits' scale, as chip_smoke.py's serving rail holds bf16 logits across
+    routes (a few ulps of the largest logits)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("arctic_480b"), dtype=dtype)
+    # The kernels' plain versions on the CPU: padding rows attend to nothing
+    # on both sides, so padding tokens route alike and take the same capacity.
+    cpu_model = LM(dataclasses.replace(cfg, attn_impl="flash"), device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_model = LM(cfg)
+    card_params = card_model.load_params(_to(cpu_params, card_model.device))
+    rng = np.random.default_rng(8)
+    b, s = 3, 128
+    seg = np.zeros((b, s), np.int32)
+    pos = np.zeros((b, s), np.int32)
+    for i in range(b):
+        cuts = [0, 30 + 10 * i, 90, s - 8]
+        for j, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            seg[i, lo:hi], pos[i, lo:hi] = j + 1, np.arange(hi - lo)
+    batch = dict(tokens=rng.integers(0, cfg.vocab_size, (b, s)), positions=pos, segments=seg)
+    cpu_batch = {key: torch.from_numpy(val) for key, val in batch.items()}
+    card_batch = _to(cpu_batch, card_model.device)
+    routed = {"cpu": [], "cuda": []}  # each layer's [ids, router logits, kept], per side
+    topk, slots = moe.router_topk, moe.dispatch_slots
+
+    def recorded(x_flat, router_w, top_k):
+        weights, ids = topk(x_flat, router_w, top_k)
+        routed[x_flat.device.type].append([ids.cpu(), (x_flat.float() @ router_w.float()).cpu()])
+        return weights, ids
+
+    def recorded_slots(ids, n_local, capacity):
+        dest_e, dest_c, keep = slots(ids, n_local, capacity)
+        routed[ids.device.type][-1].append(keep.reshape(ids.shape).cpu())
+        return dest_e, dest_c, keep
+
+    monkeypatch.setattr(moe, "router_topk", recorded)
+    monkeypatch.setattr(moe, "dispatch_slots", recorded_slots)
+    with torch.no_grad():
+        want = cpu_model.forward(cpu_params, cpu_batch)
+        fa.reset_launches()
+        first = card_model.forward(card_params, card_batch)
+        second = card_model.forward(card_params, card_batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["segment_flash_attention_pruned"] == 2 * cfg.n_layers
+    assert torch.equal(first, second)
+    assert len(routed["cpu"]) == cfg.n_layers and len(routed["cuda"]) == 2 * cfg.n_layers
+    tol = TOL[getattr(torch, dtype)]
+    left_out = torch.zeros(b * s, dtype=torch.bool)
+    rows, segs, poss = (torch.from_numpy(a.reshape(-1)) for a in (np.arange(b * s) // s, seg, pos))
+    for layer, (cpu, card) in enumerate(zip(routed["cpu"], routed["cuda"])):
+        if dtype == "float32":
+            assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[2], card[2]), f"layer {layer}: routing"
+            continue
+        moved = _routing_ties_only(cpu, card, tol, ~left_out)
+        for t in torch.nonzero(moved).flatten():
+            later = (rows == rows[t]) & (segs == segs[t]) & (poss >= poss[t])
+            left_out |= later if layer < cfg.n_layers - 1 else torch.arange(b * s) == t
+    assert int(left_out.sum()) <= b * s // 2, f"{int(left_out.sum())} of {b * s} tokens left out"
+    real = torch.arange(first.shape[-1]) < cfg.vocab_size
+    keep = ~left_out.reshape(b, s)
+    ours, theirs = first.cpu()[keep][..., real], want[keep][..., real]
+    scale = max(1.0, theirs.abs().max().item()) if dtype == "bfloat16" else 1.0
+    torch.testing.assert_close(ours, theirs, atol=tol * scale, rtol=tol)
 
 
 @pytest.mark.cuda

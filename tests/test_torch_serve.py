@@ -111,13 +111,28 @@ def test_default_device_is_the_card():
         ContinuousBatchingEngine(LM(cfg, device="cpu"), None, ServeConfig(**CONFIG))
 
 
-def test_full_width_config_matches_jax():
-    from repro.configs import get_config as jax_get_config
+# (n_layers, d_model, n_heads, n_kv_heads, d_head, d_ff, vocab_size): the published widths
+FULL_WIDTHS = {
+    "qwen3_0_6b": (28, 1024, 16, 8, 128, 3072, 151936),
+    "olmo_1b": (16, 2048, 16, 16, 128, 8192, 50304),
+    "deepseek_7b": (30, 4096, 32, 32, 128, 11008, 102400),
+    "yi_34b": (60, 7168, 56, 8, 128, 20480, 64000),
+    "chameleon_34b": (48, 8192, 64, 8, 128, 22016, 65536),
+    "hubert_xlarge": (48, 1280, 16, 16, 80, 5120, 504),
+    "arctic_480b": (35, 7168, 56, 8, 128, 4864, 32000),
+}
 
-    ours, theirs = get_config("qwen3_0_6b"), jax_get_config("qwen3_0_6b")
+
+@pytest.mark.parametrize("arch", list(FULL_WIDTHS))
+def test_full_width_config_matches_jax(arch):
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import get_smoke_config as jax_get_smoke_config
+
+    ours, theirs = get_config(arch), jax_get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert dataclasses.asdict(get_smoke_config(arch)) == dataclasses.asdict(jax_get_smoke_config(arch))
     assert (ours.n_layers, ours.d_model, ours.n_heads, ours.n_kv_heads, ours.d_head,
-            ours.d_ff, ours.vocab_size) == (28, 1024, 16, 8, 128, 3072, 151936)
+            ours.d_ff, ours.vocab_size) == FULL_WIDTHS[arch]
 
 
 def _port_files():
