@@ -16,7 +16,11 @@ beside projections in the model dtype, and no FFN group; an MoE layer's
 ``moe`` group has an fp32 ``router`` beside ``(E, d, ff)`` / ``(E, ff, d)``
 expert slabs (and a ``shared`` group with a shared expert).  A model fed
 input embeddings has no ``embed``, a non-parametric norm is an empty group,
-and a unit of ``moe_every`` layers holds them as ``sub0``, ``sub1``, ….
+and a unit of ``moe_every`` layers, or of one hybrid period (Jamba: an
+attention layer among Mamba-2 layers, MoE and dense FFNs alternating), holds
+them as ``sub0``, ``sub1``, ….  Leading dense layers (DeepSeek-V3's
+``first_k_dense``) are not stacked: the JAX tree keeps them as the list
+``prefix`` of one-layer units, ``prefix[i]["sub0"]`` being layer i.
 """
 
 from __future__ import annotations
@@ -36,8 +40,12 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _map(tree, fn):
+    """``fn`` over the leaves of a tree of dicts and lists of dicts (a list
+    of tensors, a stacked leaf of ``jax_layout``, is one leaf)."""
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list) and tree and isinstance(tree[0], dict):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -45,9 +53,9 @@ def params_from_jax(np_params: dict, cfg, device=None) -> dict:
     """The port's tree (see ``repro_torch.models.model``) from JAX params."""
     device = resolve_device(device)
     plan = stack_plan(cfg)
-    if "prefix" in np_params:
-        raise NotImplementedError("stacks with a prefix of other layers are not ported yet")
     layers: list = [None] * cfg.n_layers
+    for i, layer_idx in enumerate(plan.prefix_layers):
+        layers[layer_idx] = _map(np_params["prefix"][i]["sub0"], lambda a: _tensor(a, device))
     for u, unit in enumerate(plan.unit_layers):
         for j, layer_idx in enumerate(unit):
             layers[layer_idx] = _map(np_params["stack"][f"sub{j}"], lambda a: _tensor(a[u], device))
@@ -69,13 +77,17 @@ def jax_layout(tree: dict, cfg) -> dict:
     """A port tree (the weights, or an optimizer moment of the same shape)
     in the JAX tree's layout, with the port's own tensors as leaves: a leaf
     under ``stack/sub{j}`` is the list of the units' tensors, in unit order,
-    that the JAX package stacks on a leading axis."""
+    that the JAX package stacks on a leading axis; ``prefix`` (when the plan
+    has one) is the list of ``{"sub0": layer}`` units, unstacked."""
     plan = stack_plan(cfg)
     stack = {}
     for j in range(len(plan.unit_layers[0])):
         stack[f"sub{j}"] = _zip([tree["layers"][unit[j]] for unit in plan.unit_layers])
     out = {"embed": tree["embed"]} if "embed" in tree else {}
-    out.update(unembed=tree["unembed"], final_norm=tree["final_norm"], stack=stack)
+    out.update(unembed=tree["unembed"], final_norm=tree["final_norm"])
+    if plan.prefix_layers:
+        out["prefix"] = [{"sub0": tree["layers"][l]} for l in plan.prefix_layers]
+    out["stack"] = stack
     return out
 
 
@@ -87,6 +99,7 @@ def _zip(trees: list):
 
 def params_to_jax(params: dict, cfg) -> dict:
     """The JAX-layout tree, as fp32 numpy arrays, from the port's tree: every
-    unit's layers stacked on a leading axis under ``stack/sub{j}``."""
+    unit's layers stacked on a leading axis under ``stack/sub{j}``, the
+    prefix layers under ``prefix[i]["sub0"]``."""
     return _map(jax_layout(params, cfg), lambda leaf: (
         np.stack([_array(t) for t in leaf]) if isinstance(leaf, list) else _array(leaf)))

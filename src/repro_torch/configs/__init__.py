@@ -1,6 +1,4 @@
-"""Architecture configs (``--arch <id>``).  The JAX package's ten but
-deepseek_v3_671b (MLA) and jamba_1_5_large (the hybrid period), which are
-not ported yet."""
+"""Architecture configs (``--arch <id>``): the JAX package's ten."""
 
 from __future__ import annotations
 
@@ -14,7 +12,9 @@ ARCH_IDS = (
     "olmo_1b",
     "deepseek_7b",
     "yi_34b",
+    "deepseek_v3_671b",
     "arctic_480b",
+    "jamba_1_5_large",
     "mamba2_130m",
     "hubert_xlarge",
 )
@@ -25,7 +25,9 @@ _ALIASES = {
     "olmo-1b": "olmo_1b",
     "deepseek-7b": "deepseek_7b",
     "yi-34b": "yi_34b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "arctic-480b": "arctic_480b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
     "mamba2-130m": "mamba2_130m",
     "hubert-xlarge": "hubert_xlarge",
 }
@@ -34,7 +36,7 @@ _ALIASES = {
 def _module(arch: str):
     arch = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; have {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -1,14 +1,20 @@
-"""GQA attention with KV caches and segment masking.
+"""Attention: GQA/MQA/MHA and MLA (DeepSeek-V3), their caches, segment masking.
 
-Three paths: cache-free attention (training), the slot-scatter prefill
-(serving) and the per-slot decode over the cache.  The first two have two
-implementations behind one entry point: the plain blockwise masked attention
-below (``attn_impl="xla"``, the name kept from the JAX package) and the
-hand-written segment flash kernels in ``repro_torch.kernels``, whose
+GQA has three paths: cache-free attention (training), the slot-scatter
+prefill (serving) and the per-slot decode over the cache.  The first two
+have two implementations behind one entry point: the plain blockwise masked
+attention below (``attn_impl="xla"``, the name kept from the JAX package)
+and the hand-written segment flash kernels in ``repro_torch.kernels``, whose
 autograd backward is a kernel too.  ``use_flash_attention`` routes between
 them from ``ArchConfig.attn_impl``; "auto" takes the kernel exactly when the
 batch is packed and the tensors lie on a CUDA device.  Decode always takes
 the plain path over the cache.
+
+MLA always takes the plain path, as in the JAX package, which computes it
+with XLA einsums and no kernel: training and prefill in the direct form
+(the latents expanded to per-head keys and values), decode in the absorbed
+form against the latent cache.  Its prefill fills the cache of one request
+per row from index 0; it has no slot-scatter map.
 
 Masking contract (shared with the kernels): attention is allowed iff
 ``segment_ids`` match (padding carries segment 0) AND (causal ⇒ key position
@@ -16,7 +22,7 @@ Masking contract (shared with the kernels): attention is allowed iff
 path by within-segment ``positions``.  The two agree because segments are
 contiguous and positions restart at every segment start.
 
-The KV cache is updated in place (the JAX package returns new arrays): the
+The caches are updated in place (the JAX package returns new arrays): the
 cache is the largest state on the card, and a copy per layer per step would
 double its traffic.
 """
@@ -26,6 +32,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
@@ -39,9 +46,14 @@ class KVCache(NamedTuple):
     v: torch.Tensor  # (B, S_max, n_kv, d_head)
 
 
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # (B, S_max, kv_lora_rank) — the compressed latent
+    k_rope: torch.Tensor  # (B, S_max, qk_rope_dim) — the rope key shared by the heads
+
+
 def make_attention_params(generator, cfg, dtype, device) -> Params:
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not ported yet")
+    if cfg.attn_kind == "mla":
+        return _make_mla_params(generator, cfg, dtype, device)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     p: Params = {
         "wq": dense_init(generator, d, h * dh, dtype, device),
@@ -53,6 +65,21 @@ def make_attention_params(generator, cfg, dtype, device) -> Params:
         p["q_norm"] = torch.ones((dh,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((dh,), dtype=dtype, device=device)
     return p
+
+
+def _make_mla_params(generator, cfg, dtype, device) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "w_dq": dense_init(generator, d, cfg.q_lora_rank, dtype, device),
+        "q_norm": torch.ones((cfg.q_lora_rank,), dtype=dtype, device=device),
+        "w_uq": dense_init(generator, cfg.q_lora_rank, h * (nope + rope), dtype, device),
+        "w_dkv": dense_init(generator, d, cfg.kv_lora_rank + rope, dtype, device),
+        "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=dtype, device=device),
+        "w_uk": dense_init(generator, cfg.kv_lora_rank, h * nope, dtype, device),
+        "w_uv": dense_init(generator, cfg.kv_lora_rank, h * vdim, dtype, device),
+        "wo": dense_init(generator, h * vdim, d, dtype, device),
+    }
 
 
 # ------------------------------------------------------------------------------
@@ -158,7 +185,7 @@ def warm_flash_blocks(cfg, batch: dict, dtype) -> None:
     A no-op unless ``attn_autotune`` is set and the batch takes the flash
     route."""
     segments = batch.get("segments")
-    if not (cfg.attn_autotune and cfg.uses_attention
+    if not (cfg.attn_autotune and cfg.attn_kind == "gqa"
             and use_flash_attention(cfg, segments, None)):
         return
     inputs = batch["embeds"] if cfg.input_embeds else batch["tokens"]
@@ -253,16 +280,10 @@ def gqa_attention(
         )
     # Per-slot cache frontier (continuous-batching decode): row i writes its
     # new K/V at its own offset cache_index[i] and reads keys strictly below
-    # its frontier.  A free slot's stale frontier may equal max_len; its
-    # write is dropped: with one token per distinct row, the clamped
-    # index_put writes the old value back there, with no host sync.
+    # its frontier.
     max_len = cache.k.shape[1]
-    rows = torch.arange(b, device=x.device)[:, None]
-    cols = cache_index.long()[:, None] + torch.arange(s, device=x.device)[None, :]
-    inside = (cols < max_len)[..., None, None]
-    cols = cols.clamp(max=max_len - 1)
-    cache.k[rows, cols] = torch.where(inside, k.to(cache.k.dtype), cache.k[rows, cols])
-    cache.v[rows, cols] = torch.where(inside, v.to(cache.v.dtype), cache.v[rows, cols])
+    _write_at_frontier(cache.k, cache_index, k)
+    _write_at_frontier(cache.v, cache_index, v)
     k_limit = (cache_index.to(positions.dtype)[:, None] + s)[:, :, None]
     k_pos = torch.arange(max_len, dtype=positions.dtype, device=x.device).expand(b, max_len)
     out = _block_sdpa(
@@ -272,7 +293,137 @@ def gqa_attention(
     return out.reshape(b, s, h * dh) @ params["wo"], cache
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> KVCache:
+def _write_at_frontier(buf: torch.Tensor, cache_index: torch.Tensor, new: torch.Tensor) -> None:
+    """Write ``new`` (B, s, ...) into ``buf`` (B, S_max, ...) in place, row i
+    at columns ``cache_index[i]`` onward.  A free slot's stale frontier may
+    equal S_max; its write is dropped: with one token per distinct row, the
+    clamped index_put writes the old value back there, with no host sync."""
+    b, s = new.shape[:2]
+    max_len = buf.shape[1]
+    rows = torch.arange(b, device=buf.device)[:, None]
+    cols = cache_index.long()[:, None] + torch.arange(s, device=buf.device)[None, :]
+    inside = (cols < max_len).reshape(b, s, *([1] * (new.dim() - 2)))
+    cols = cols.clamp(max=max_len - 1)
+    buf[rows, cols] = torch.where(inside, new.to(buf.dtype), buf[rows, cols])
+
+
+# ------------------------------------------------------------------------------
+# MLA forward
+# ------------------------------------------------------------------------------
+
+
+def _mla_block_sdpa(q_nope, q_rope, k_nope, k_rope, v, q_pos, k_pos, q_seg, k_seg, k_limit,
+                    causal: bool, scale: float, q_block: int = 256):
+    """q_nope (B, Sq, H, nope) and q_rope (B, Sq, H, rope) over k_nope
+    (B, Sk, H, nope), the shared k_rope (B, Sk, rope) and v (B, Sk, H, vdim),
+    one query block at a time.  The scores are the nope product plus the
+    rope product, in fp32, times ``scale``.  Under grad each block keeps only
+    its inputs and recomputes its scores in the backward (the JAX package
+    checkpoints its scan body), so the saved scores never exceed one block."""
+    b, sq = q_nope.shape[:2]
+
+    def block(qn, qr, qp, qs):
+        scores = torch.einsum("bqhd,bshd->bhqs", qn, k_nope).float()
+        scores = scores + torch.einsum("bqhd,bsd->bhqs", qr, k_rope).float()
+        scores = scores * scale
+        allowed = _block_mask(qp, k_pos, qs, k_seg, k_limit, causal)
+        scores = torch.where(allowed[:, None], scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+    blk = _pick_block(sq, q_block)
+    if blk == sq:
+        return block(q_nope, q_rope, q_pos, q_seg)
+    outs = []
+    for start in range(0, sq, blk):
+        sl = slice(start, start + blk)
+        args = (q_nope[:, sl], q_rope[:, sl], q_pos[:, sl], None if q_seg is None else q_seg[:, sl])
+        outs.append(checkpoint(block, *args, use_reentrant=False) if torch.is_grad_enabled()
+                    else block(*args))
+    return torch.cat(outs, dim=1)
+
+
+def mla_attention(
+    params: Params,
+    x: torch.Tensor,  # (B, S, d)
+    cfg,
+    positions: torch.Tensor,  # (B, S)
+    segments: torch.Tensor | None = None,
+    cache: MLACache | None = None,
+    cache_index=None,  # decode: (B,) or scalar; prefill: scalar, the first column to fill
+) -> tuple[torch.Tensor, MLACache | None]:
+    """Multi-head latent attention.  Queries and keys/values go through
+    low-rank latents (``q_norm`` and ``kv_norm`` are RMS norms of the
+    latents); the last ``qk_rope_dim`` columns of each head's query and of
+    the kv down-projection carry RoPE, the latter as one key shared by every
+    head.  Scores are scaled by 1/√(nope + rope)."""
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = 1.0 / ((nope + rope) ** 0.5)
+
+    cq = rms_norm(x @ params["w_dq"], params["q_norm"])
+    q = (cq @ params["w_uq"]).reshape(b, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    dkv = x @ params["w_dkv"]
+    ckv = rms_norm(dkv[..., :r], params["kv_norm"])
+    k_rope = apply_rope(dkv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None and s == 1:
+        # Decode, weight-absorbed: attend in the latent space, so a step costs
+        # O(S·(kv_lora + rope)) per head and the cache keeps (kv_lora + rope)
+        # per token.  Row i writes at its frontier cache_index[i] and reads
+        # the keys below it.
+        frontier = torch.as_tensor(cache_index, device=x.device)
+        if frontier.dim() == 0:
+            frontier = frontier.expand(b)
+        _write_at_frontier(cache.ckv, frontier, ckv)
+        _write_at_frontier(cache.k_rope, frontier, k_rope)
+        max_len = cache.ckv.shape[1]
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, params["w_uk"].reshape(r, h, nope))
+        scores = torch.einsum("bshr,btr->bhst", q_lat, cache.ckv).float()
+        scores = scores + torch.einsum("bshr,btr->bhst", q_rope, cache.k_rope).float()
+        scores = scores * scale
+        k_pos = torch.arange(max_len, dtype=positions.dtype, device=x.device)[None, None, :]
+        allowed = (k_pos <= positions[:, :, None]) & (
+            k_pos < (frontier.to(positions.dtype) + s)[:, None, None])
+        scores = torch.where(allowed[:, None], scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cache.ckv.dtype)
+        out_lat = torch.einsum("bhst,btr->bshr", probs, cache.ckv)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, params["w_uv"].reshape(r, h, vdim))
+        return out.reshape(b, s, h * vdim) @ params["wo"], cache
+
+    # Train / prefill: the direct form.
+    k_nope = (ckv @ params["w_uk"]).reshape(b, s, h, nope)
+    v = (ckv @ params["w_uv"]).reshape(b, s, h, vdim)
+    if cache is not None:  # prefill fills the latent cache from cache_index on
+        start = int(cache_index)
+        cache.ckv[:, start:start + s] = ckv.to(cache.ckv.dtype)
+        cache.k_rope[:, start:start + s] = k_rope.to(cache.k_rope.dtype)
+    out = _mla_block_sdpa(q_nope, q_rope, k_nope, k_rope, v, positions, positions, segments, segments,
+                          None, cfg.causal, scale)
+    return out.reshape(b, s, h * vdim) @ params["wo"], cache
+
+
+def apply_attention(params, x, cfg, positions, segments=None, cache=None, cache_index=None,
+                    dest_slot=None):
+    """The attention mixer of one layer: MLA on its plain path, else GQA."""
+    if cfg.attn_kind == "mla":
+        if dest_slot is not None:
+            raise NotImplementedError(
+                "slot-scatter prefill needs the GQA cache layout; MLA serving "
+                "stays on the per-request prefill path (LM.prefill / LM.decode_step)"
+            )
+        return mla_attention(params, x, cfg, positions, segments, cache, cache_index)
+    return gqa_attention(params, x, cfg, positions, segments, cache, cache_index, dest_slot=dest_slot)
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> KVCache | MLACache:
+    if cfg.attn_kind == "mla":
+        return MLACache(
+            ckv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+            k_rope=torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+        )
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),

@@ -1,12 +1,14 @@
 """Layer blocks: pre-norm mixer + FFN with residuals, and the stack plan.
 
 The JAX package scans its stack over units of layers; here the stack is a
-Python loop over unstacked layers, each with its own parameters and cache.
-Ported: GQA attention with a dense MLP (families ``dense``, ``vlm`` and
-``encoder``) or an MoE FFN with an optional dense residual MLP (``moe``,
-MoE on every ``moe_every``-th layer), and the SSM family (a Mamba-2 mixer
-and no FFN).  Not yet: leading dense layers (``first_k_dense``), the hybrid
-period and MLA.
+Python loop over unstacked layers, each with its own parameters and cache,
+and the plan only says how the bridge and the checkpoints stack the layers
+in the JAX tree: leading dense layers (DeepSeek-V3's ``first_k_dense``) as
+an unrolled prefix, the rest in units of one layer, of ``moe_every`` layers
+when MoE skips layers, or of one hybrid period (Jamba: ``attn_period``
+layers, one attention and the rest Mamba-2, MoE on every ``moe_every``-th).
+A layer's mixer is GQA or MLA attention or a Mamba-2 mixer; its FFN a dense
+MLP, an MoE FFN (with an optional dense residual MLP), or none (mamba2).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.models.attention import gqa_attention, init_kv_cache, make_attention_params
+from repro_torch.models.attention import apply_attention, init_kv_cache, make_attention_params
 from repro_torch.models.layers import apply_mlp, apply_norm, make_mlp_params, make_norm_params
 from repro_torch.models.moe import make_moe_params, moe_ffn
 from repro_torch.models.ssm import apply_ssm_block, init_ssm_cache, make_ssm_params
@@ -33,17 +35,23 @@ class StackPlan:
 
 
 def stack_plan(cfg) -> StackPlan:
-    """The JAX package's unit structure (the bridge unstacks by it): one layer
-    per unit, or ``moe_every`` layers when MoE skips layers; no prefix."""
-    if (cfg.family not in ("dense", "vlm", "encoder", "moe", "ssm") or cfg.first_k_dense
-            or cfg.attn_kind == "mla"):
-        raise NotImplementedError(f"family {cfg.family!r} of {cfg.name} is not ported yet")
-    period = cfg.moe_every if cfg.n_experts and cfg.moe_every > 1 else 1
-    if cfg.n_layers % period:
-        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole units of {period}")
-    layers = range(cfg.n_layers)
-    units = tuple(tuple(layers[i:i + period]) for i in range(0, cfg.n_layers, period))
-    return StackPlan(prefix_layers=(), unit_layers=units)
+    """The JAX package's unit structure (the bridge unstacks by it): the
+    ``first_k_dense`` prefix, then units of the hybrid period, of
+    ``moe_every`` layers, or of one layer; every unit of the same layer
+    kinds."""
+    prefix = tuple(range(cfg.first_k_dense))
+    rest = range(cfg.first_k_dense, cfg.n_layers)
+    period = cfg.attn_period if cfg.family == "hybrid" else 1
+    if cfg.family != "hybrid" and cfg.n_experts and cfg.moe_every > 1:
+        period = cfg.moe_every
+    if len(rest) % period:
+        raise ValueError(f"{cfg.name}: {len(rest)} layers after the prefix are not whole units "
+                         f"of {period}")
+    units = tuple(tuple(rest[i:i + period]) for i in range(0, len(rest), period))
+    kinds = {tuple((cfg.layer_kind(l), cfg.layer_is_moe(l)) for l in u) for u in units}
+    if len(kinds) > 1:
+        raise ValueError(f"inhomogeneous units for {cfg.name}: {kinds}")
+    return StackPlan(prefix_layers=prefix, unit_layers=units)
 
 
 def make_layer_params(generator, cfg, layer_idx: int, dtype, device) -> Params:
@@ -67,7 +75,7 @@ def layer_forward(params: Params, x, cfg, layer_idx: int, positions, segments, c
                   dest_slot=None):
     h = apply_norm(params["norm_mixer"], x, cfg)
     if cfg.layer_kind(layer_idx) == "attn":
-        mixed, new_cache = gqa_attention(
+        mixed, new_cache = apply_attention(
             params["mixer"], h, cfg, positions, segments, cache, cache_index, dest_slot=dest_slot
         )
     else:

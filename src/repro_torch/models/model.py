@@ -10,19 +10,23 @@ engine and the tests can hand it weights from :meth:`LM.init`,
      "layers": [{"norm_mixer", "mixer", "norm_ffn", "mlp"}, ...]}
 
 with every projection stored ``(d_in, d_out)`` and applied as ``x @ W``, the
-JAX package's layout.  A non-parametric norm (OLMo) is an empty group; an
-MoE layer holds ``moe`` (``router``, the ``(E, d, ff)`` expert slabs and,
-with a shared expert, a ``shared`` group) beside its dense residual ``mlp``
-(Arctic); a model fed input embeddings (HuBERT) has no ``embed``.  Every
-weight is a trainable ``nn.Parameter``; the serving steps run under
-``torch.no_grad()``, so they record no graph.
+JAX package's layout.  ``layers`` holds every layer in order, DeepSeek-V3's
+dense prefix and each of Jamba's hybrid periods included (the JAX tree's
+``prefix`` and ``stack`` are the bridge's business).  A non-parametric norm
+(OLMo) is an empty group; an MoE layer holds ``moe`` (``router``, the
+``(E, d, ff)`` expert slabs and, with a shared expert, a ``shared`` group)
+beside its dense residual ``mlp`` (Arctic); an MLA mixer holds the latent
+projections and norms (``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``,
+``kv_norm``, ``w_uk``, ``w_uv``, ``wo``); a model fed input embeddings
+(HuBERT) has no ``embed``.  Every weight is a trainable ``nn.Parameter``;
+the serving steps run under ``torch.no_grad()``, so they record no graph.
 
 Entry points: ``forward`` → fp32 logits and ``loss_sums`` → (loss_sum,
 token_count) for training; ``init_caches``, ``prefill_packed`` and
 ``decode_step_slots`` for the continuous-batching engine; ``prefill`` and
 ``decode_step`` (one frontier for the whole batch) for per-request serving,
-the path of the SSM family, which the engine does not serve.  Batches are
-dicts: ``tokens`` (B, S) or, for a model fed input embeddings, ``embeds``
+the path of the stacks the engine does not serve (SSM, hybrid, MLA).
+Batches are dicts: ``tokens`` (B, S) or, for a model fed input embeddings, ``embeds``
 (B, S, d); ``labels``, ``loss_mask`` and, for the packed layout,
 ``positions`` and ``segments``.  An encoder has no decode: the serving
 entry points refuse it, as the JAX package has none.  The layer tree of the
@@ -93,6 +97,9 @@ class LM(nn.Module):
             raise ValueError(f"attn_impl {cfg.attn_impl!r} not in ('xla', 'flash', 'auto')")
         if cfg.attn_grid not in ("dense", "pruned", "auto"):
             raise ValueError(f"attn_grid {cfg.attn_grid!r} not in ('dense', 'pruned', 'auto')")
+        if cfg.attn_impl == "flash" and cfg.attn_kind == "mla":
+            raise ValueError("attn_impl='flash' requires GQA-layout attention; MLA's latent "
+                             "score decomposition trains on the plain blockwise path")
         if cfg.remat == "dots":
             raise NotImplementedError("remat='dots' is not ported yet; use 'full' or 'none'")
 
@@ -219,19 +226,24 @@ class LM(nn.Module):
         """Encode a (B, S) batch of prompts into fresh caches from a zero
         state; returns (last-token fp32 logits (B, 1, Vp), caches).
 
-        Attention layers take the slot-scatter path with one segment per
-        row and row i's K/V landing in cache row i; SSM layers run the
+        GQA layers take the slot-scatter path with one segment per row and
+        row i's K/V landing in cache row i; MLA layers fill their latent
+        cache from index 0 and attend in the direct form; SSM layers run the
         chunked SSD from a zero state and keep its final state."""
         self._require_decode()
+        cfg = self.cfg
         b, s = tokens.shape
         caches = self.init_caches(b, max_len)
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        segments = dest_slot = None
-        if self.cfg.uses_attention:
-            segments = torch.ones((b, s), dtype=torch.int32, device=tokens.device)
-            dest_slot = torch.arange(b, dtype=torch.int32, device=tokens.device)[:, None].expand(b, s)
+        segments = torch.ones((b, s), dtype=torch.int32, device=tokens.device)
+        dest_slot = torch.arange(b, dtype=torch.int32, device=tokens.device)[:, None].expand(b, s)
         x = params["embed"][tokens]
-        x, caches = self._run_stack(params, x, positions, segments, caches, None, dest_slot=dest_slot)
+        for l, layer_params in enumerate(params["layers"]):
+            scatter = cfg.layer_kind(l) == "attn" and cfg.attn_kind == "gqa"
+            x, caches[l] = layer_forward(
+                layer_params, x, cfg, l, positions, segments if scatter else None, caches[l], 0,
+                dest_slot=dest_slot if scatter else None,
+            )
         return self._logits(params, x[:, -1:]), caches
 
     def prefill_packed(

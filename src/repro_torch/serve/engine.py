@@ -126,7 +126,9 @@ class ContinuousBatchingEngine:
             cfg.layer_kind(l) != "attn" for l in range(cfg.n_layers)
         ):
             raise NotImplementedError(
-                "the slot-scatter prefill path serves GQA-attention stacks"
+                "the slot-scatter prefill path serves GQA-attention stacks; "
+                "MLA/SSM archs stay on the per-request prefill loop "
+                "(LM.prefill / LM.decode_step)"
             )
         self.model = model
         self.params = params

@@ -10,8 +10,9 @@ The counterpart of ``repro.train.checkpoint``, with its scheme:
     a ``RuntimeWarning``; an explicit ``step=`` never falls back, and a shape
     mismatch is a hard error on every path;
   * the JAX tree's keys: the state is flattened in the JAX layout and order
-    (dict keys sorted, the layers stacked unit by unit under
-    ``stack/sub{j}``, ``bridge.jax_layout``), paths joined by ``/``, and an
+    (dict keys sorted, list items by index, the layers stacked unit by unit
+    under ``stack/sub{j}`` and a dense prefix under ``prefix/{i}/sub0``,
+    ``bridge.jax_layout``), paths joined by ``/``, and an
     npz member name replaces ``/`` with ``__SEP__``: ``params/...``,
     ``opt/m/...``, ``opt/v/...``, ``opt/step``.  A checkpoint written by one
     package restores in the other.
@@ -56,7 +57,8 @@ _BF16_DESCR = "<V2"  # how numpy's npy header names ml_dtypes' bfloat16
 
 def _flatten(state: Any, cfg) -> list[tuple[str, Any]]:
     """(key, leaf) in the JAX tree's order; a leaf is a tensor, or the list
-    of per-unit tensors that the JAX layout stacks on a leading axis."""
+    of per-unit tensors that the JAX layout stacks on a leading axis (a
+    list of dicts, ``prefix``, is walked with index keys)."""
     out: list[tuple[str, Any]] = []
 
     def walk(node, path: tuple) -> None:
@@ -67,6 +69,9 @@ def _flatten(state: Any, cfg) -> list[tuple[str, Any]]:
                 node = jax_layout(node, cfg)
             for key in sorted(node):
                 walk(node[key], path + (key,))
+        elif isinstance(node, list) and node and isinstance(node[0], dict):
+            for i, item in enumerate(node):  # the JAX layout's ``prefix`` list
+                walk(item, path + (str(i),))
         else:
             out.append(("/".join(path), node))
 

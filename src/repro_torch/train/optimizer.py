@@ -83,11 +83,20 @@ def init_opt_state(params: Params, cfg: OptimizerConfig) -> dict:
     }
 
 
+NORM_CHUNK = 1 << 28  # elements: 1 GiB of fp32
+
+
 def global_norm(tree) -> torch.Tensor:
+    """The fp32 L2 norm over every leaf.  A leaf of more than NORM_CHUNK
+    elements is summed a chunk at a time, so no fp32 copy of it is made
+    whole (one expert slab's gradient at DeepSeek-V3's widths is 14 GiB in
+    fp32); a smaller leaf is summed in one call."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:
-        total = total + torch.sum(torch.square(g.float()))
+        flat = g.reshape(-1)
+        for i in range(0, flat.numel(), NORM_CHUNK):
+            total = total + torch.sum(torch.square(flat[i:i + NORM_CHUNK].float()))
     return torch.sqrt(total)
 
 

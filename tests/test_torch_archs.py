@@ -20,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import LM as JaxLM
 from repro.models import layers as jax_layers
+from repro.models.blocks import stack_plan as jax_stack_plan
 from repro.models.model import shift_labels as jax_shift_labels
 from repro_torch.bridge import jax_layout, params_from_jax, params_to_jax
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import LM, layers
 from repro_torch.models.blocks import stack_plan
 from repro_torch.train import optimizer
@@ -253,7 +256,7 @@ def test_bridge_round_trip_exact(jax_weights, arch):
         assert tuple(moe["w_out"].shape) == (tcfg.n_experts, tcfg.moe_d_ff, tcfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [*ARCHS, "deepseek_v3_671b", "jamba_1_5_large"])
 def test_port_init_has_the_jax_tree(arch):
     """The port's own ``LM.init`` gives the JAX tree's paths, shapes and
     dtypes (the values are the port's own draws)."""
@@ -270,9 +273,12 @@ def test_port_init_has_the_jax_tree(arch):
 
 def _layout_leaves(tree) -> list:
     """The leaves of a ``jax_layout`` tree in JAX's order; a stacked leaf
-    stays the list of its units' tensors."""
+    stays the list of its units' tensors (``prefix``, a list of dicts, is
+    walked)."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in _layout_leaves(tree[key])]
+    if isinstance(tree[0], dict):
+        return [leaf for item in tree for leaf in _layout_leaves(item)]
     return [tree]
 
 
@@ -307,7 +313,29 @@ def test_train_launcher_refuses_hubert(monkeypatch):
         train.main()
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "jamba_1_5_large"])
-def test_unported_archs_still_raise(arch):
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_smoke_config(arch)
+# The full-width configs, and the depth cuts that chip_smoke.py runs on the card.
+PLAN_CASES = {**{arch: {} for arch in JAX_ARCH_IDS},
+              "deepseek_v3_671b-4-layers": dict(n_layers=4),
+              "jamba_1_5_large-2-layers": dict(n_layers=2, attn_period=2)}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_stack_plan_matches_jax(case):
+    """The port's prefix and units equal JAX ``stack_plan``'s (the layout
+    the bridge and the checkpoints follow): DeepSeek-V3's 3-layer dense
+    prefix, Jamba's periods of 8 (one attention layer, MoE every second)."""
+    arch, overrides = case.split("-")[0], PLAN_CASES[case]
+    ours = stack_plan(dataclasses.replace(get_config(arch), **overrides))
+    theirs = jax_stack_plan(dataclasses.replace(jax_get_config(arch), **overrides))
+    assert (ours.prefix_layers, ours.unit_layers) == (theirs.prefix_layers, theirs.unit_layers)
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
+
+
+def test_stack_plan_refuses_inhomogeneous_units():
+    """Units must share their layer kinds (the JAX package asserts it): a
+    hybrid period of 3 over MoE every second layer does not."""
+    cfg = dataclasses.replace(get_config("jamba_1_5_large"), n_layers=6, attn_period=3)
+    with pytest.raises(ValueError, match="inhomogeneous units"):
+        stack_plan(cfg)
+    with pytest.raises(ValueError, match="not whole units"):
+        stack_plan(dataclasses.replace(get_config("jamba_1_5_large"), n_layers=12))

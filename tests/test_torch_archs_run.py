@@ -104,9 +104,19 @@ def test_trainer_three_steps_match_jax(arch):
     """Three steps of the JAX trainer and of the port's (packed, flash
     pruned; the port's kernels on their plain versions) from the same
     weights on the same streaming data path."""
-    steps, weights = 3, _jax_weights(arch)
-    jcfg = dataclasses.replace(jax_smoke_config(arch), attn_impl="flash", attn_grid="pruned")
-    tcfg = dataclasses.replace(get_smoke_config(arch), attn_impl="flash", attn_grid="pruned")
+    three_trainer_steps(arch, attn_impl="flash", attn_grid="pruned")
+
+
+def three_trainer_steps(arch: str, weights: dict | None = None, **overrides) -> None:
+    """Three steps of the JAX trainer and of the port's on ``arch``'s smoke
+    config with ``overrides`` (the attention route), from the same weights
+    (``weights``, numpy, or the JAX ``LM.init``'s) on the same packed
+    streaming data path: per-step tokens, loss and grad_norm, and the
+    weights afterwards."""
+    steps = 3
+    weights = _jax_weights(arch) if weights is None else weights
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **overrides)
+    tcfg = dataclasses.replace(get_smoke_config(arch), **overrides)
     opt = dict(total_steps=100)
     data = ("uniform_narrow", 0.05)
     jloader = JaxLoader(jax_get_dataset(data[0], scale=data[1]), config=JaxOdbConfig(**ODB),
@@ -126,7 +136,9 @@ def test_trainer_three_steps_match_jax(arch):
     params = model.load_params(params_from_jax(weights, tcfg, "cpu"))
     state, n = trainer.train_epoch({"params": params,
                                     "opt": optimizer.init_opt_state(params, trainer.opt_cfg)})
-    assert n == steps and (trainer.attn_impl, trainer.attn_grid) == ("flash", "pruned")
+    assert n == steps
+    if "attn_impl" in overrides:
+        assert (trainer.attn_impl, trainer.attn_grid) == (overrides["attn_impl"], overrides["attn_grid"])
     assert len(trainer.history) == len(jtrainer.history) == steps
     for ours, theirs in zip(trainer.history, jtrainer.history):
         assert ours["tokens"] == theirs["tokens"]

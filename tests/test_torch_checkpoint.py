@@ -2,8 +2,9 @@
 
 Checkpoints cross packages: a trainer state written by the JAX package's
 ``save_checkpoint`` restores in the port bit for bit, and the reverse, for
-the qwen3 and mamba2 smoke configs (fp32) and, from JAX to the port, for a
-bf16 mamba2 state.  Bit for bit is checked twice: every leaf's values
+the qwen3, mamba2, OLMo, Arctic, DeepSeek-V3 (the ``prefix/{i}/sub0`` keys
+of its dense layers) and Jamba (units of 8 mixed layers) smoke configs
+(fp32) and, from JAX to the port, for a bf16 mamba2 state.  Bit for bit is checked twice: every leaf's values
 against the other side's, and the npz members that the two packages write
 for the same state, byte for byte.  The moments are random numbers from a
 seed (a trained state is not needed to move bits), the step counter 7.
@@ -88,6 +89,8 @@ FIRST_KEYS = {
     "mamba2_130m": ["opt/m/embed", "opt/m/final_norm/scale"],
     "olmo_1b": ["opt/m/embed", "opt/m/stack/sub0/mixer/wk"],
     "arctic_480b": ["opt/m/embed", "opt/m/final_norm/scale"],
+    "deepseek_v3_671b": ["opt/m/embed", "opt/m/final_norm/scale"],
+    "jamba_1_5_large": ["opt/m/embed", "opt/m/final_norm/scale"],
 }
 
 
@@ -107,6 +110,8 @@ def test_jax_checkpoint_restores_in_port(tmp_path, arch):
     manifests = [json.loads((tmp_path / side / "latest.json").read_text()) for side in ("port", "jax")]
     assert manifests[0]["keys"] == manifests[1]["keys"]
     assert manifests[0]["keys"][:2] == FIRST_KEYS[arch]
+    if trainer.model.cfg.first_k_dense:
+        assert "params/prefix/0/sub0/mixer/w_dq" in manifests[0]["keys"]
 
 
 @pytest.mark.parametrize("arch", list(FIRST_KEYS))

@@ -1,9 +1,11 @@
 """Card-only checks of the port: the CUDA kernels (also at the added
-architectures' head layouts and masks), the engine, a train step, the MoE
-model's forward, the streaming data path's staging of step arrays on the card, the SSM
-model's prefill and decode, the SSD's autograd Function, a bf16 SSM
-checkpoint, the tile census against the card's liveness tables and a
-train step through a transient injected gather fault on the GPU.
+architectures' head layouts and masks, and K7 at Jamba's 256 heads), the
+engine, a train step, the MoE models' forward (Arctic, and the DeepSeek-V3
+and Jamba smokes: MLA, the dense prefix, the hybrid period), the streaming
+data path's staging of step arrays on the card, the SSM model's prefill and
+decode, the SSD's autograd Function, a bf16 SSM checkpoint, the tile census
+against the card's liveness tables and a train step through a transient
+injected gather fault on the GPU.
 
 Every test here is marked ``cuda`` and skips itself where no CUDA device is
 present (the kernels have no CPU mode).  The file imports neither JAX nor the
@@ -235,15 +237,40 @@ def test_arctic_forward_on_card_matches_cpu(dtype, monkeypatch):
     routed alike, what is left is rounding: they are held at 2e-2 of the
     logits' scale, as chip_smoke.py's serving rail holds bf16 logits across
     routes (a few ulps of the largest logits)."""
+    _moe_forward_on_card_matches_cpu("arctic_480b", dtype, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "jamba_1_5_large"])
+def test_mla_and_hybrid_forward_on_card_match_cpu(arch, dtype, monkeypatch):
+    """The DeepSeek-V3 smoke (MLA on its plain path, a dense prefix layer,
+    MoE with a shared expert) and the Jamba smoke (one hybrid period: K4 in
+    its attention layer, K7 in its seven Mamba-2 layers) under the rule of
+    ``test_arctic_forward_on_card_matches_cpu``: fp32 at 2e-5 with equal
+    routing, bf16 routing-aware, two card runs bitwise equal.  In Jamba the
+    SSM state flows across packed samples, so a token that takes other
+    experts leaves the rest of its row out of later layers' comparison."""
+    _moe_forward_on_card_matches_cpu(arch, dtype, monkeypatch)
+
+
+def _moe_forward_on_card_matches_cpu(arch: str, dtype: str, monkeypatch) -> None:
+    """``arch``'s smoke in ``dtype`` on a packed batch of 3 x 128: the card's
+    ``LM.forward`` (twice, bitwise equal) against the CPU's, every MoE
+    layer's routing recorded on both sides (see the Arctic test)."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_smoke_config("arctic_480b"), dtype=dtype)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
     # The kernels' plain versions on the CPU: padding rows attend to nothing
     # on both sides, so padding tokens route alike and take the same capacity.
-    cpu_model = LM(dataclasses.replace(cfg, attn_impl="flash"), device="cpu")
+    flash = "flash" if cfg.attn_kind == "gqa" else cfg.attn_impl
+    cpu_model = LM(dataclasses.replace(cfg, attn_impl=flash), device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     card_model = LM(cfg)
     card_params = card_model.load_params(_to(cpu_params, card_model.device))
+    moe_layers = [l for l in range(cfg.n_layers) if cfg.layer_is_moe(l)]
+    gqa_layers = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers)) * (cfg.attn_kind == "gqa")
+    ssm_layers = sum(cfg.layer_kind(l) == "ssm" for l in range(cfg.n_layers))
     rng = np.random.default_rng(8)
     b, s = 3, 128
     seg = np.zeros((b, s), np.int32)
@@ -255,7 +282,7 @@ def test_arctic_forward_on_card_matches_cpu(dtype, monkeypatch):
     batch = dict(tokens=rng.integers(0, cfg.vocab_size, (b, s)), positions=pos, segments=seg)
     cpu_batch = {key: torch.from_numpy(val) for key, val in batch.items()}
     card_batch = _to(cpu_batch, card_model.device)
-    routed = {"cpu": [], "cuda": []}  # each layer's [ids, router logits, kept], per side
+    routed = {"cpu": [], "cuda": []}  # each MoE layer's [ids, router logits, kept], per side
     topk, slots = moe.router_topk, moe.dispatch_slots
 
     def recorded(x_flat, router_w, top_k):
@@ -273,23 +300,31 @@ def test_arctic_forward_on_card_matches_cpu(dtype, monkeypatch):
     with torch.no_grad():
         want = cpu_model.forward(cpu_params, cpu_batch)
         fa.reset_launches()
+        ssd.reset_launches()
         first = card_model.forward(card_params, card_batch)
         second = card_model.forward(card_params, card_batch)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["segment_flash_attention_pruned"] == 2 * cfg.n_layers
+    assert fa.LAUNCHES["segment_flash_attention_pruned"] == 2 * gqa_layers
+    assert ssd.LAUNCHES["ssd_scan"] == 2 * ssm_layers
     assert torch.equal(first, second)
-    assert len(routed["cpu"]) == cfg.n_layers and len(routed["cuda"]) == 2 * cfg.n_layers
+    assert len(routed["cpu"]) == len(moe_layers) and len(routed["cuda"]) == 2 * len(moe_layers)
     tol = TOL[getattr(torch, dtype)]
     left_out = torch.zeros(b * s, dtype=torch.bool)
-    rows, segs, poss = (torch.from_numpy(a.reshape(-1)) for a in (np.arange(b * s) // s, seg, pos))
-    for layer, (cpu, card) in enumerate(zip(routed["cpu"], routed["cuda"])):
+    flat = torch.arange(b * s)
+    rows, cols, segs, poss = flat // s, flat % s, *(torch.from_numpy(a.reshape(-1)) for a in (seg, pos))
+    for i, (cpu, card) in enumerate(zip(routed["cpu"], routed["cuda"])):
         if dtype == "float32":
-            assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[2], card[2]), f"layer {layer}: routing"
+            assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[2], card[2]), f"MoE layer {i}: routing"
             continue
         moved = _routing_ties_only(cpu, card, tol, ~left_out)
         for t in torch.nonzero(moved).flatten():
-            later = (rows == rows[t]) & (segs == segs[t]) & (poss >= poss[t])
-            left_out |= later if layer < cfg.n_layers - 1 else torch.arange(b * s) == t
+            if moe_layers[i] == cfg.n_layers - 1:
+                later = flat == t
+            elif cfg.uses_ssm:  # the SSM state carries it to the rest of the row
+                later = (rows == rows[t]) & (cols >= cols[t])
+            else:
+                later = (rows == rows[t]) & (segs == segs[t]) & (poss >= poss[t])
+            left_out |= later
     assert int(left_out.sum()) <= b * s // 2, f"{int(left_out.sum())} of {b * s} tokens left out"
     real = torch.arange(first.shape[-1]) < cfg.vocab_size
     keep = ~left_out.reshape(b, s)
@@ -498,6 +533,7 @@ def _ssd_inputs(seed, b, s, h, p, n, dtype, strided=False, decay=1.0):
     (1, 2048, 2, 64, 128, 1024, True),  # the largest chunk: the most shared memory
     (2, 512, 24, 64, 128, 256, True),
     (1, 4096, 24, 64, 128, 256, True),  # the state passed over 16 chunks
+    (1, 512, 256, 64, 128, 256, True),  # Jamba-1.5-Large's 256 heads: rows of d_inner + 2N = 16640
 ])
 def test_ssd_kernel_vs_plain(dtype, shape, decay):
     """K7 against its plain chunked version: y and the final state, from a

@@ -120,6 +120,8 @@ FULL_WIDTHS = {
     "chameleon_34b": (48, 8192, 64, 8, 128, 22016, 65536),
     "hubert_xlarge": (48, 1280, 16, 16, 80, 5120, 504),
     "arctic_480b": (35, 7168, 56, 8, 128, 4864, 32000),
+    "deepseek_v3_671b": (61, 7168, 128, 128, 128, 18432, 129280),
+    "jamba_1_5_large": (72, 8192, 64, 8, 128, 24576, 65536),
 }
 
 

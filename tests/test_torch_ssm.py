@@ -46,7 +46,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.models import LM, ssm
-from repro_torch.models.blocks import stack_plan
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves, tree_map
 from repro_torch.train.trainer import Trainer, TrainerConfig, assemble_model_batch
@@ -440,17 +439,6 @@ def test_slot_scatter_prefill_refuses_ssm(mamba):
     zeros = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="per-request prefill"):
         model.prefill_packed(params, caches, tokens, zeros, zeros + 1, zeros)
-
-
-@pytest.mark.parametrize("family", ["hybrid", "moe"])
-def test_stack_plan_refuses_hybrid_and_moe(family):
-    if family == "hybrid":
-        cfg = dataclasses.replace(get_smoke_config("mamba2_130m"), family="hybrid", attn_period=2)
-    else:  # MoE stacks are ported; a leading dense prefix (DeepSeek-V3's) is not
-        cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"), family="moe", n_experts=4, top_k=2,
-                                  first_k_dense=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        stack_plan(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -224,6 +224,22 @@ def test_adamw_matches_jax(moment_dtype, param_dtype):
         )
 
 
+@pytest.mark.parametrize("chunk", [1 << 28, 7], ids=["one-call", "chunked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_global_norm_matches_jax(dtype, chunk, monkeypatch):
+    """The fp32 norm over a tree, with leaves summed whole or, past
+    ``NORM_CHUNK`` elements, a chunk at a time, against JAX's (fp32 2e-5)."""
+    monkeypatch.setattr(optimizer, "NORM_CHUNK", chunk)
+    rng = np.random.default_rng(12)
+    tree = {"a": rng.standard_normal((4, 8)), "b": [rng.standard_normal(5), rng.standard_normal((3, 2))],
+            "c": np.float32(2.5)}
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+    ours = optimizer.global_norm(optimizer.tree_map(lambda a: torch.from_numpy(a).to(TORCH_DTYPES[dtype]), tree))
+    theirs = jax_optimizer.global_norm(jax.tree.map(lambda a: jnp.asarray(a, JAX_DTYPES[dtype]), tree))
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(float(ours), float(theirs), rtol=2e-5)
+
+
 # -- (d) the data path -------------------------------------------------------------
 
 
