@@ -223,7 +223,27 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                JAMBA_LOSS_EXACT_TOL), and K7 held and timed at Jamba's
                prefill (8, 2048, 256, 64, 128) and held at its loss's
                (2, 4096);
-16. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+16. mesh      — (a) ``launch/flash_dryrun.validate_flash_sharded`` at
+               Qwen3-0.6B's 16/8 heads, d_head 128, on the first training
+               step's 2 x 6144 rows, bf16 and fp32, both grids: at world 1
+               over NCCL in this process and at world 2 over gloo in two
+               spawned ranks sharing the card (one row each, the pruned
+               grid's liveness tables built from the rank's own segments):
+               each rank's out, dQ, dK, dV bitwise equal to the single-process
+               call's rows (else the worst error, held at the kernel's
+               tolerance), one launch of each of the grid's kernels per call
+               and rank, ms per rank; (b) full-width Qwen3-0.6B packed
+               training (the training phase's cell, the pruned route),
+               MESH_TRAIN_STEPS steps from seed-0 weights under remat "full",
+               "dots" and "none" on the same batches: "dots"'s loss and
+               grad_norm bitwise "full"'s, "none" within MESH_REMAT_RTOL, K4
+               2 x 28 a step under "full" and "dots" and 28 under "none"; peak
+               memory and step ms per mode; (c) ``python -m
+               repro_torch.launch.dryrun --mesh both`` for each of MESH_CELLS
+               in subprocesses on the card's torch (the fake process group,
+               the meta device): bytes per device and their parts, fits,
+               the dominant roofline term;
+17. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
@@ -239,7 +259,7 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                over 16 at d_head 80, bidirectional; Yi-34B's and Arctic-480B's
                56 over 8, causal); at each of these shapes the timed inputs
                are first held against the plain version (K1-K6, bf16);
-17. kernels  — one JSON line with every ported kernel.
+18. kernels  — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -400,6 +420,14 @@ ARCH_TIME_SHAPES = (
     ("HuBERT-XLarge", dict(heads=16, kv_heads=16, d_head=80, causal=False)),
     ("Yi-34B / Arctic-480B", dict(heads=56, kv_heads=8, d_head=128, causal=True)),
 )
+
+
+# The mesh phase: remat's training steps, the tolerance of remat="none"
+# against "full" (bf16 weights; the kernels are the same, the roundings of
+# the saved and recomputed activations are not), the dry run's cells.
+MESH_TRAIN_STEPS = 2
+MESH_REMAT_RTOL = 2e-2
+MESH_CELLS = ("qwen3_0_6b:train_4k_packed", "deepseek_v3_671b:train_4k", "jamba_1_5_large:long_500k")
 
 
 def check(ok: bool, what: str) -> None:
@@ -3204,6 +3232,310 @@ def phase_mla_hybrid(rng) -> dict:
     return dict(runs=runs, launches=launches, max_abs_err=errs, ssd=ssd_row)
 
 
+# -- mesh: the sharded flash check, remat="dots", the dry run on the card's torch ----------
+
+
+def mesh_inputs(train_seg):
+    """Qwen3-0.6B's attention widths on the first training step's rows:
+    fp32 normals on the CPU from seed 13, and the step's segment ids."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator().manual_seed(13)
+    b, s = train_seg.shape
+    q, k, v = (torch.randn((b, s, n, D_HEAD), generator=g) for n in (HEADS, KV_HEADS, KV_HEADS))
+    return q, k, v, torch.from_numpy(np.ascontiguousarray(train_seg, dtype=np.int32))
+
+
+def mesh_reference(inputs, grid: str, dtype: str) -> dict:
+    """The single-process call on every row (out, dq, dk, dv), the blocks
+    ``validate_flash_sharded`` takes."""
+    import torch
+
+    from repro_torch.kernels.ops import flash_attention
+
+    q, k, v = (t.to("cuda", getattr(torch, dtype)).contiguous().requires_grad_() for t in inputs[:3])
+    out = flash_attention(q, k, v, inputs[3].cuda(), True, 128, 128, grid)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+    return {"out": out.detach(), **dict(zip(("dq", "dk", "dv"), grads))}
+
+
+def mesh_compare(tensors: dict, ref: dict, rows: list, dtype: str) -> dict:
+    """Per tensor: bitwise equal to the reference's rows, or else the worst
+    error and whether it lies within the kernel's tolerance tol·(1 + |ref|)."""
+    import torch
+
+    out = {}
+    for name, t in tensors.items():
+        want = ref[name][rows[0]:rows[1]]
+        t = t.to(want.device)
+        err = float((t.float() - want.float()).abs().max())
+        ok = bool(((t.float() - want.float()).abs() <= TOL[dtype] * (1 + want.float().abs())).all())
+        out[name] = dict(equal=bool(torch.equal(t, want)), max_abs_err=err, within_tol=ok)
+    return out
+
+
+def mesh_sharded(mesh, inputs, rows_per_shard: int) -> dict:
+    """``validate_flash_sharded`` in both dtypes and grids on this rank (a
+    warm-up call, then the measured one), each held against the
+    single-process call made in this process.  Returns per case the record
+    (without tensors), the comparison and the sha256 of the rank's
+    tensors."""
+    import torch
+
+    from repro_torch.launch.flash_dryrun import validate_flash_sharded
+
+    cases = {}
+    for dtype in ("bfloat16", "float32"):
+        for grid in ("dense", "pruned"):
+            kw = dict(rows_per_shard=rows_per_shard, seq=inputs[0].shape[1], heads=HEADS,
+                      kv_heads=KV_HEADS, head_dim=D_HEAD, dtype=dtype, inputs=inputs)
+            validate_flash_sharded(mesh, grid, **kw)
+            rec = validate_flash_sharded(mesh, grid, keep=True, **kw)
+            check(rec["status"] == "ok", f"[mesh] {dtype} {grid}: {rec.get('traceback')}")
+            tensors = rec.pop("tensors")
+            ref = mesh_reference(inputs, grid, dtype)
+            rec["compare"] = mesh_compare(tensors, ref, rec["rows"], dtype)
+            rec["sha256"] = {n: hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes()).hexdigest()[:16] for n, t in tensors.items()}
+            cases[f"{dtype}/{grid}"] = rec
+            del tensors, ref
+    return cases
+
+
+def mesh_rank_main(rank: int, world: int, init_file: str, queue, train_seg) -> None:
+    """One gloo rank of the sharded flash check, spawned; both ranks share
+    the card.  Puts its cases (or its error) on ``queue``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        try:
+            inputs = mesh_inputs(train_seg)
+            out["cases"] = mesh_sharded(make_host_mesh(), inputs, inputs[0].shape[0] // world)
+        finally:
+            dist.destroy_process_group()
+    except Exception as exc:  # reported to the parent, which fails the phase
+        import traceback
+
+        out["error"] = f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"
+    queue.put(out)
+
+
+def mesh_held(tag: str, cases: dict) -> None:
+    for case, rec in cases.items():
+        for name, cmp in rec["compare"].items():
+            if not cmp["equal"]:
+                print(f"{tag} {case} {name}: not bitwise equal to the single-process call, worst error "
+                      f"{cmp['max_abs_err']:.3e} (within the kernel's tolerance: {cmp['within_tol']})")
+            check(cmp["equal"] or cmp["within_tol"], f"{tag} {case} {name}: {cmp}")
+        grid = case.split("/")[1]
+        want = {n: int(KERNELS[n][2] == grid) for n in KERNELS}
+        check(rec["launches"] == want, f"{tag} {case}: launches {rec['launches']} != {want}")
+
+
+def mesh_flash(train_seg) -> dict:
+    """(a) The sharded flash check at world 1 over NCCL in this process and
+    at world 2 over gloo in two spawned ranks."""
+    import tempfile
+    from queue import Empty
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    tag = "[mesh]"
+    inputs = mesh_inputs(train_seg)
+    rows = inputs[0].shape[0]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{work / 'nccl'}", rank=0, world_size=1)
+        try:
+            nccl = mesh_sharded(make_host_mesh(), inputs, rows)
+        finally:
+            dist.destroy_process_group()
+        mesh_held(f"{tag} world 1 over NCCL", nccl)
+        ctx = tmp.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=mesh_rank_main, args=(r, 2, str(work / "gloo"), queue, train_seg))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            ranks = []
+            while len(ranks) < len(procs):
+                try:
+                    ranks.append(queue.get(timeout=5))
+                except Empty:
+                    check(all(p.is_alive() for p in procs),
+                          f"{tag} a rank exited without a result: {[p.exitcode for p in procs]}")
+            ranks.sort(key=lambda r: r["rank"])
+        finally:
+            for p in procs:
+                p.join(60)
+                if p.is_alive():
+                    p.kill()
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    for r in ranks:
+        check("error" not in r, f"{tag} rank {r['rank']} failed: {r.get('error')}")
+        mesh_held(f"{tag} world 2 over gloo, rank {r['rank']}", r["cases"])
+    for case, rec in nccl.items():
+        losses = [r["cases"][case]["loss"] for r in ranks]
+        check(losses[0] == losses[1], f"{tag} {case}: the ranks' summed losses differ: {losses}")
+        check(abs(losses[0] - rec["loss"]) <= 1e-5 * abs(rec["loss"]),
+              f"{tag} {case}: world 2 loss {losses[0]} vs world 1 {rec['loss']}")
+        print(f"{tag} {case} (2 x {rec['seq']}, {HEADS}/{KV_HEADS} heads, d_head {D_HEAD}): world 1 NCCL "
+              f"{rec['run_s'] * 1e3:.3f} ms, loss {rec['loss']:.6e}, bitwise "
+              f"{all(c['equal'] for c in rec['compare'].values())}, launches "
+              f"{ {n: c for n, c in rec['launches'].items() if c} }; world 2 gloo "
+              + "; ".join(f"rank {r['rank']} rows {r['cases'][case]['rows']} "
+                          f"{r['cases'][case]['run_s'] * 1e3:.3f} ms, bitwise "
+                          f"{all(c['equal'] for c in r['cases'][case]['compare'].values())}, sha256 "
+                          f"{r['cases'][case]['sha256']['out']}, launches "
+                          f"{ {n: c for n, c in r['cases'][case]['launches'].items() if c} }"
+                          for r in ranks))
+    launches = {n: {"nccl_world1": sum(rec["launches"][n] for rec in nccl.values()),
+                    "gloo_world2": [sum(rec["launches"][n] for rec in r["cases"].values()) for r in ranks]}
+                for n in KERNELS}
+    return dict(launches=launches, nccl=nccl, gloo=[r["cases"] for r in ranks])
+
+
+def mesh_remat() -> dict:
+    """(b) Full-width Qwen3-0.6B packed training, MESH_TRAIN_STEPS steps
+    each under remat "full", "dots" and "none" on the same batches, from
+    seed-0 weights: the loss and grad_norm under "dots" bitwise equal to
+    "full"'s, "none" within MESH_REMAT_RTOL; K4 2 x 28 a step under "full"
+    and "dots", 28 under "none" (the kernel is not a product, so it is
+    recomputed); peak memory and step ms per mode."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import assemble_model_batch, make_train_step
+
+    tag = "[mesh]"
+    trainer, loader = train_launcher.build(train_launcher.parser().parse_args(TRAIN_ARGS))
+    batches = []
+    for loader_step in loader.epoch(0):
+        batches.append(assemble_model_batch(loader_step, loader.layout, trainer.model.device))
+        if len(batches) == MESH_TRAIN_STEPS:
+            break
+    base = dataclasses.replace(trainer.model.cfg, attn_impl="flash", attn_grid="pruned")
+    opt_cfg, n_layers = trainer.opt_cfg, base.n_layers
+    del trainer
+    free_cuda()
+    runs = {}
+    for mode in ("full", "dots", "none"):
+        model = LM(dataclasses.replace(base, remat=mode))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        step = make_train_step(model, opt_cfg)
+        rec = {"loss": [], "grad_norm": [], "step_ms": [], "k4": [], "launches": dict.fromkeys(KERNELS, 0)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for batch in batches:
+            fa.reset_launches()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["k4"].append(fa.LAUNCHES["segment_flash_attention_pruned"])
+            rec["launches"] = {n: rec["launches"][n] + fa.LAUNCHES[n] for n in KERNELS}
+            rec["loss"].append(float(metrics["loss"]))
+            rec["grad_norm"].append(float(metrics["grad_norm"]))
+            check(all(math.isfinite(x) for x in (rec["loss"][-1], rec["grad_norm"][-1])),
+                  f"{tag} remat={mode}: loss {rec['loss'][-1]} grad_norm {rec['grad_norm'][-1]}")
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["rows"] = list(batches[0]["tokens"].shape)
+        runs[mode] = rec
+        print(f"{tag} remat={mode}: {MESH_TRAIN_STEPS} steps of {rec['rows']}, losses {rec['loss']}, "
+              f"grad_norm {rec['grad_norm']}, step ms {[round(x, 3) for x in rec['step_ms']]}, peak "
+              f"{rec['peak_gib']:.3f} GiB, K4 per step {rec['k4']}")
+        del model, params, state, step
+        free_cuda()
+    for mode, want in (("full", 2 * n_layers), ("dots", 2 * n_layers), ("none", n_layers)):
+        check(runs[mode]["k4"] == [want] * MESH_TRAIN_STEPS,
+              f"{tag} remat={mode}: K4 per step {runs[mode]['k4']} != {want}")
+    check(runs["dots"]["loss"] == runs["full"]["loss"]
+          and runs["dots"]["grad_norm"] == runs["full"]["grad_norm"],
+          f"{tag} remat=dots is not bitwise remat=full: {runs['dots']} vs {runs['full']}")
+    for key in ("loss", "grad_norm"):
+        for a, b in zip(runs["none"][key], runs["full"][key]):
+            check(abs(a - b) <= MESH_REMAT_RTOL * abs(b), f"{tag} remat=none {key} {a} vs full {b}")
+    print(f"{tag} remat=dots: loss and grad_norm bitwise equal to remat=full over {MESH_TRAIN_STEPS} steps; "
+          f"remat=none within {MESH_REMAT_RTOL}")
+    return runs
+
+
+def mesh_dryrun() -> dict:
+    """(c) ``python -m repro_torch.launch.dryrun --mesh both`` for each of
+    MESH_CELLS, in parallel subprocesses on the card's torch (the fake
+    process group and the meta device); each record's bytes per device,
+    whether it fits and its dominant roofline term."""
+    tag = "[mesh]"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for cell in MESH_CELLS:
+        arch, shape = cell.split(":")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--mesh", "both", "--force"]
+        procs.append((cell, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True)))
+    records = {}
+    for cell, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        check(proc.returncode == 0, f"{tag} dryrun {cell} exited {proc.returncode}:\n{out[-3000:]}")
+        arch, shape = cell.split(":")
+        for mesh in ("single", "multi"):
+            rec = json.loads((ROOT / "artifacts" / "dryrun_torch" / f"{arch}__{shape}__{mesh}.json").read_text())
+            check(rec["status"] == "ok", f"{tag} dryrun {cell} {mesh}: {rec.get('error')}")
+            parts = {k: round(v / 2**30, 3) for k, v in rec["bytes_parts"].items()}
+            print(f"{tag} dryrun {arch} x {shape} x {mesh} ({rec['chips']} H100s): "
+                  f"{rec['bytes_per_device'] / 2**30:.3f} GiB/device {parts}, fits 80 GiB {rec['fits']}, "
+                  f"dominant {rec['roofline']['dominant']}, terms s compute {rec['roofline']['compute_s']:.4e} "
+                  f"memory {rec['roofline']['memory_s']:.4e} (upper) collective "
+                  f"{rec['roofline']['collective_s']:.4e}, run {rec['run_s']}s")
+            records[f"{cell}:{mesh}"] = {k: rec[k] for k in ("bytes_per_device", "bytes_parts", "fits",
+                                                             "run_s")}
+            records[f"{cell}:{mesh}"]["dominant"] = rec["roofline"]["dominant"]
+    return records
+
+
+def phase_mesh(train_seg) -> dict:
+    """The mesh slice on the card: (a) the sharded flash check, (b)
+    remat="dots" training, (c) the dry run under the card's torch."""
+    import torch
+
+    print(f"[mesh] torch {torch.__version__}")
+    flash = mesh_flash(train_seg)
+    remat = mesh_remat()
+    dry = mesh_dryrun()
+    launches = flash["launches"]
+    for n in KERNELS:
+        launches[n]["remat_dots"] = remat["dots"]["launches"][n]
+    return dict(launches=launches, remat=remat, dryrun=dry)
+
+
 def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     """(FLOPs, bytes) of the least work of one K7 call with the final state:
     C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
@@ -3364,6 +3696,7 @@ def main() -> None:
     chaos_launches = timed(phase_chaos, train_seg)
     archs = timed(phase_archs, np.random.default_rng(8))
     mla_hybrid = timed(phase_mla_hybrid, np.random.default_rng(12))
+    mesh = timed(phase_mesh, train_seg)
     serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = timed(phase_times_training, np.random.default_rng(3), train_seg)
     arch_times = [timed(phase_times_training, np.random.default_rng(9 + i),
@@ -3409,6 +3742,11 @@ def main() -> None:
         if grid == "pruned":
             entry.update(launches_mla_hybrid={run: rec[kname] for run, rec in mla_hybrid["launches"].items()},
                          launches_mla_hybrid_note=MLA_HYBRID_NOTE)
+        entry.update(launches_mesh=mesh["launches"][kname],
+                     launches_mesh_note="the mesh phase: validate_flash_sharded in bf16 and fp32 on "
+                                        f"its grid at 2 x {train_seg.shape[1]} (world 1 over NCCL; per rank "
+                                        f"at world 2 over gloo); {MESH_TRAIN_STEPS} remat='dots' training "
+                                        "steps of full-width Qwen3-0.6B")
         if kname in serve_launches:
             entry.update(
                 launches_serving=serve_launches[kname],

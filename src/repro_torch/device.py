@@ -6,7 +6,8 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; ``"cpu"`` must be asked for.
+    """``None`` means the CUDA card; ``"cpu"`` must be asked for, and so must
+    ``"meta"`` (shapes and dtypes without storage, for the dry run).
 
     Raises when a CUDA device is wanted and none is available: the port never
     falls back to the CPU on its own.
@@ -16,7 +17,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' (--device cpu) to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -8,7 +8,8 @@ fp32 final state when asked: the two ends of the carried state, which the
 model's prefill needs.
 
 Given CUDA tensors it launches the kernel or raises; given CPU tensors it
-computes the plain version (``kernels/ref.ssd_chunked_ref``).  The kernel is
+computes the plain version (``kernels/ref.ssd_chunked_ref``), and so it does
+on meta tensors (the dry run's shapes, where nothing runs).  The kernel is
 forward only: on a CUDA tensor with grad mode on and an input that requires
 grad it raises.  Training differentiates through ``kernels/ops.ssd_chunked_scan``,
 whose autograd Function runs this wrapper in its forward (grad mode off)
@@ -128,7 +129,7 @@ def ssd_scan(
     must divide S).  Returns ``y`` (B, S, H, P) in x's dtype and, with
     ``return_final_state``, the fp32 final state (B, H, P, N)."""
     chunk = _check_inputs(x, adt, dt, b_p, c_p, chunk, initial_state)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         y, final = ssd_chunked_ref(x, adt, dt, b_p, c_p, chunk, initial_state)
         return (y, final) if return_final_state else y
     if x.device.type != "cuda":

@@ -64,8 +64,9 @@ class ArchConfig:
     dtype: str = "bfloat16"
     logits_fp32: bool = True
     # Training remat: "full" recomputes each layer in the backward
-    # (torch.utils.checkpoint around every layer); "none" keeps every
-    # activation; the JAX package's "dots" policy is not ported.
+    # (torch.utils.checkpoint around every layer); "dots" keeps the layer's
+    # products without a batch dimension and recomputes the rest (JAX's
+    # dots_with_no_batch_dims_saveable); "none" keeps every activation.
     remat: str = "full"
 
     # ---- kernel routing ----

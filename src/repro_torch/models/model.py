@@ -39,7 +39,12 @@ from typing import Any
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (
@@ -59,6 +64,27 @@ from repro_torch.models.layers import (
 Params = dict[str, Any]
 
 VOCAB_ALIGN = 256  # the JAX package pads the vocab so TP=16 divides it
+REMAT_MODES = ("none", "full", "dots")
+
+_aten = torch.ops.aten
+_PRODUCTS = (_aten.mm.default, _aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: JAX's ``dots_with_no_batch_dims_saveable``.  Keep
+    the output of every matrix product without a batch dimension (``mm``,
+    ``addmm``, and a ``bmm`` over a batch of one, which is how ``matmul``
+    may fold ``x @ W``) and recompute the rest: the attention scores, the
+    MoE's expert slabs and the SSD's contractions are batched products in
+    JAX too.  The hand-written kernels are invisible to the dispatcher, so
+    they are recomputed, as JAX recomputes a ``pallas_call``."""
+    if op in _PRODUCTS or (op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def padded_vocab(vocab: int) -> int:
@@ -100,15 +126,15 @@ class LM(nn.Module):
         if cfg.attn_impl == "flash" and cfg.attn_kind == "mla":
             raise ValueError("attn_impl='flash' requires GQA-layout attention; MLA's latent "
                              "score decomposition trains on the plain blockwise path")
-        if cfg.remat == "dots":
-            raise NotImplementedError("remat='dots' is not ported yet; use 'full' or 'none'")
+        if cfg.remat not in REMAT_MODES:
+            raise ValueError(f"remat {cfg.remat!r} not in {REMAT_MODES}")
 
     # -- weights ---------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None) -> Params:
         """Random weights (truncated normal, σ = 1/√d_in; norms at 1) drawn
         from ``generator`` on the model's device; returns the tree."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        if generator is None:
+        if generator is None and dev.type != "meta":  # meta draws nothing
             generator = torch.Generator(device=dev).manual_seed(0)
         vp = padded_vocab(cfg.vocab_size)
         params: Params = {"final_norm": make_norm_params(cfg, dt, dev)}
@@ -162,14 +188,16 @@ class LM(nn.Module):
     def _train_stack(self, params, x, positions, segments):
         """The cache-free stack.  With ``remat="full"`` (the JAX package's
         ``jax.checkpoint`` around its scan body) each layer keeps only its
-        input for the backward and recomputes the rest there."""
+        input for the backward and recomputes the rest there; ``"dots"``
+        also keeps the products without a batch dimension (:func:`_dots_policy`)."""
         cfg = self.cfg
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        context_fn = _dots_context if cfg.remat == "dots" else noop_context_fn
         for l, layer_params in enumerate(params["layers"]):
             def layer(h, l=l, layer_params=layer_params):
                 return layer_forward(layer_params, h, cfg, l, positions, segments, None, None)[0]
 
-            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+            x = checkpoint(layer, x, use_reentrant=False, context_fn=context_fn) if remat else layer(x)
         return x
 
     def _logits(self, params, x) -> torch.Tensor:

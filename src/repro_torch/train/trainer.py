@@ -97,7 +97,8 @@ def _warmer(model: LM):
     seen = set()
 
     def warm(batch):
-        shape = (tuple(batch["tokens"].shape), "segments" in batch)
+        inputs = batch["embeds"] if model.cfg.input_embeds else batch["tokens"]
+        shape = (tuple(inputs.shape), "segments" in batch)
         if model.cfg.attn_autotune and shape not in seen:
             warm_flash_blocks(model.cfg, batch, model.dtype)
             seen.add(shape)

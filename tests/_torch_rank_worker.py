@@ -1,8 +1,8 @@
 """Rank processes for the port's torch.distributed tests (gloo on the CPU).
 
-Spawned by tests/test_torch_dp.py and tests/test_torch_comm.py.  This module
-imports torch and the port only, never JAX, so a spawned rank starts in
-about a second.  Inputs and results travel as pickles the tests write
+Spawned by tests/test_torch_dp.py, tests/test_torch_comm.py and
+tests/test_torch_dryrun.py.  This module imports torch and the port only,
+never JAX, so a spawned rank starts in about a second.  Inputs and results travel as pickles the tests write
 themselves under ``tmp_path``.
 """
 
@@ -146,5 +146,31 @@ def cuda_reduce_rank(rank: int, world: int, init_file: str, out_path: str) -> No
             rank, np.arange(2) + rank)]
         with open(out_path, "wb") as f:
             pickle.dump(seen, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def flash_rank(rank: int, world: int, init_file: str, inputs_path: str, out_path: str) -> None:
+    """``validate_flash_sharded`` on a ``(world, 1)`` host mesh, both grids,
+    on the inputs' global batch; pickles each record with this rank's out,
+    dq, dk and dv.  One thread: the ranks share the cores, and a reduction
+    split over however many threads a busy machine grants is not bitwise
+    repeatable."""
+    from repro_torch.launch.flash_dryrun import validate_flash_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(1)
+    init_group(rank, world, init_file)
+    try:
+        with open(inputs_path, "rb") as f:
+            inp = pickle.load(f)
+        mesh = make_host_mesh()
+        out = {}
+        for grid in ("dense", "pruned"):
+            out[grid] = validate_flash_sharded(
+                mesh, grid, inputs=tuple(torch.from_numpy(x) for x in inp["inputs"]), keep=True,
+                device="cpu", **inp["widths"])
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
     finally:
         dist.destroy_process_group()

@@ -4,8 +4,9 @@ engine, a train step, the MoE models' forward (Arctic, and the DeepSeek-V3
 and Jamba smokes: MLA, the dense prefix, the hybrid period), the streaming
 data path's staging of step arrays on the card, the SSM model's prefill and
 decode, the SSD's autograd Function, a bf16 SSM checkpoint, the tile census
-against the card's liveness tables and a train step through a transient
-injected gather fault on the GPU.
+against the card's liveness tables, a train step through a transient
+injected gather fault on the GPU, ``remat="dots"`` on the flash route and
+the sharded flash check at world 1 over NCCL.
 
 Every test here is marked ``cuda`` and skips itself where no CUDA device is
 present (the kernels have no CPU mode).  The file imports neither JAX nor the
@@ -861,3 +862,66 @@ def test_transient_gather_fault_step_equals_fault_free_on_card():
         for i in range(2):
             spread = max(abs(x[i] - y[i]) for x, y in zip(twin, ref))
             assert all(abs(x[i] - y[i]) <= spread for x, y in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_dots_on_card_equals_full(dtype):
+    """A smoke packed train step on the pruned flash route under
+    ``remat="dots"``: the loss and every gradient bitwise equal to
+    ``remat="full"``'s; K4 runs twice a layer under both (the kernel is not
+    a product, so the policy recomputes it), once under ``"none"``."""
+    _need_card()
+    from repro_torch.models.model import shift_labels
+
+    rng = np.random.default_rng(3)
+    seg = np.repeat(np.arange(1, 5, dtype=np.int32), 64)[None].repeat(2, 0)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 256)).astype(np.int32)).cuda()
+    segments = torch.from_numpy(seg).cuda()
+    positions = torch.from_numpy(np.tile(np.arange(64, dtype=np.int32), 4)[None].repeat(2, 0)).cuda()
+    labels, mask = shift_labels(tokens, torch.ones(2, 256, device="cuda"), segments=segments)
+    batch = {"tokens": tokens, "labels": labels, "loss_mask": mask, "positions": positions,
+             "segments": segments}
+    runs = {}
+    for remat in ("full", "dots", "none"):
+        cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"), attn_impl="flash", attn_grid="pruned",
+                                  remat=remat, dtype=dtype)
+        model = LM(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        fa.reset_launches()
+        loss_sum, count = model.loss_sums(params, batch)
+        leaves = tree_leaves(params)
+        runs[remat] = ((loss_sum / count).detach(), torch.autograd.grad(loss_sum / count, leaves),
+                       fa.LAUNCHES["segment_flash_attention_pruned"])
+    n = get_smoke_config("qwen3_0_6b").n_layers
+    assert [runs[m][2] for m in ("full", "dots", "none")] == [2 * n, 2 * n, n]
+    assert torch.equal(runs["dots"][0], runs["full"][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs["dots"][1], runs["full"][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["dense", "pruned"])
+def test_validate_flash_sharded_world1_nccl(grid, tmp_path):
+    """``validate_flash_sharded`` at world 1 over NCCL: one launch of each of
+    the grid's three kernels, and out and gradients bitwise equal to the
+    kernels called directly."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.launch.flash_dryrun import make_inputs, validate_flash_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+
+    inputs = make_inputs(2, 512, 4, 2, 64, seed=1)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        rec = validate_flash_sharded(make_host_mesh(), grid, inputs=inputs, keep=True, dtype="bfloat16")
+    finally:
+        dist.destroy_process_group()
+    assert rec["status"] == "ok", rec.get("traceback")
+    names = [n for n in fa.LAUNCHES if ("pruned" in n) == (grid == "pruned")]
+    assert rec["launches"] == {n: int(n in names) for n in fa.LAUNCHES}
+    q, k, v = (t.to("cuda", torch.bfloat16).requires_grad_() for t in inputs[:3])
+    out = ops.flash_attention(q, k, v, inputs[3].cuda(), True, 128, 128, grid)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+    for name, want in zip(("out", "dq", "dk", "dv"), (out.detach(), *grads)):
+        assert torch.equal(rec["tensors"][name], want.cpu()), name

@@ -160,9 +160,14 @@ def test_import_leaves_jax_unloaded():
         "import sys, repro_torch.serve, repro_torch.launch.serve, repro_torch.bridge, "
         "repro_torch.launch.train, repro_torch.kernels.ops, repro_torch.stream, "
         "repro_torch.stream.workers, repro_torch.chaos, repro_torch.data.oracles, "
-        "repro_torch.kernels.liveness; "
+        "repro_torch.kernels.liveness, repro_torch.launch.mesh, repro_torch.launch.sharding, "
+        "repro_torch.launch.steps, repro_torch.launch.dryrun, repro_torch.launch.flash_dryrun, "
+        "repro_torch.launch.perf, repro_torch.roofline, repro_torch.roofline.analysis, "
+        "repro_torch.roofline.cost; "
+        "import torch.distributed as dist; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
-        "assert not bad, bad"
+        "assert not bad, bad; "
+        "assert not (dist.is_available() and dist.is_initialized()), 'a process group at import'"
     )
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
