@@ -243,7 +243,28 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                in subprocesses on the card's torch (the fake process group,
                the meta device): bytes per device and their parts, fits,
                the dominant roofline term;
-17. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
+17. ep        — expert parallelism on full-width Arctic-480B cut to one layer
+               (128 experts of 7168 x 4864, top-2, the dense residual),
+               bf16, weights from seed 0 made once in this process: the
+               engine serving the default trace's first 8 requests (K4 once
+               a prefill call) and one ``loss_sums`` with its gradients on a
+               packed row of 4096 (K4 2, K5 1, K6 1), at world 1 over NCCL
+               (the single-device branch), then at world 2 over gloo in two
+               spawned ranks sharing the card and the weights (CUDA IPC; 64
+               experts and half the dense residual a rank),
+               ``dispatch_chunks`` 1 and then 2; per rank the peak, tick and
+               loss ms and the launches; at one chunk the pairs kept and
+               dropped, summed over the ranks, equal world 1's, and the first
+               prefill's logits, the loss and every gradient (held shard by
+               shard against world 1's on the host) lie within the bf16
+               allowance (2e-2 x (1 + |ref|)), each printed as a share of it;
+               K1-K6 held at the loss's segments and K1/K4 at the prefill
+               buckets with Arctic's 56/8 heads; then
+               ``examples/serve_packed_torch.py``, ``quickstart_torch.py``,
+               ``train_100m_torch.py --preset 100m --steps 6`` and
+               ``odb_vs_standard_torch.py`` run on the card side by side
+               (their tails printed);
+18. times     — K1, K4 at the serving shapes and K2, K3, K5, K6 at the first
                training step's shape: the kernel, the plain version,
                ``scaled_dot_product_attention`` and its backward with the same
                boolean mask (a yardstick only: the port never calls it), and
@@ -259,7 +280,7 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                over 16 at d_head 80, bidirectional; Yi-34B's and Arctic-480B's
                56 over 8, causal); at each of these shapes the timed inputs
                are first held against the plain version (K1-K6, bf16);
-18. kernels  — one JSON line with every ported kernel.
+19. kernels  — one JSON line with every ported kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -428,6 +449,21 @@ ARCH_TIME_SHAPES = (
 MESH_TRAIN_STEPS = 2
 MESH_REMAT_RTOL = 2e-2
 MESH_CELLS = ("qwen3_0_6b:train_4k_packed", "deepseek_v3_671b:train_4k", "jamba_1_5_large:long_500k")
+# The ep phase: full-width Arctic-480B cut to one layer (128 experts of 7168 x
+# 4864 and the dense residual), the serving trace's first requests and one
+# packed row for the loss, at world 1 (NCCL) and 2 (gloo, 64 experts a rank).
+EP_ARCH, EP_LAYERS = "arctic_480b", 1
+EP_REQUESTS = 8
+EP_LEN = 4096
+EP_WORLD = 2
+EP_CHUNKS = (1, 2)
+EP_NOTE = (f"per run of the ep phase (full-width Arctic-480B cut to {EP_LAYERS} layer): the engine serving "
+           f"the default trace's first {EP_REQUESTS} requests, and one loss_sums with its gradients on 1 x "
+           f"{EP_LEN} packed tokens; world 1 over NCCL, and per rank at world {EP_WORLD} over gloo "
+           f"(expert parallelism, dispatch_chunks {' and '.join(map(str, EP_CHUNKS))})")
+EP_EXAMPLES = (("examples/serve_packed_torch.py",), ("examples/quickstart_torch.py",),
+               ("examples/train_100m_torch.py", "--preset", "100m", "--steps", "6"),
+               ("examples/odb_vs_standard_torch.py",))  # schedules and the paper's cost model: no model
 
 
 def check(ok: bool, what: str) -> None:
@@ -2925,15 +2961,19 @@ def reset_all_launches() -> None:
 
 @contextlib.contextmanager
 def counted_drops(sink: list):
-    """Within the block, every MoE call appends to ``sink`` its (token,
-    expert) pairs, its capacity and the pairs it dropped at capacity."""
+    """Within the block, every MoE dispatch appends to ``sink`` its (token,
+    expert) pairs, its capacity, the pairs of its own experts it dropped at
+    capacity and those it kept (with expert parallelism a rank dispatches
+    every pair and keeps only its own experts')."""
     from repro_torch.models import moe
 
     slots = moe.dispatch_slots
 
-    def counted(ids, n_local, capacity):
-        dest_e, dest_c, keep = slots(ids, n_local, capacity)
-        sink.append((ids.numel(), capacity, int((~keep).sum())))
+    def counted(ids, n_local, capacity, e_start=0):
+        dest_e, dest_c, keep = slots(ids, n_local, capacity, e_start)
+        local = ids.reshape(-1) - e_start
+        own = (local >= 0) & (local < n_local)
+        sink.append((ids.numel(), capacity, int((own & ~keep).sum()), int(keep.sum())))
         return dest_e, dest_c, keep
 
     moe.dispatch_slots = counted
@@ -3536,6 +3576,363 @@ def phase_mesh(train_seg) -> dict:
     return dict(launches=launches, remat=remat, dryrun=dry)
 
 
+# -- ep: the MoE's expert parallelism on full-width Arctic, and the examples ---------------
+
+
+def ep_inputs(cfg) -> dict:
+    """The serving trace's first EP_REQUESTS requests and one packed row of
+    EP_LEN tokens in 256-2048-token segments with seeded tokens and labels,
+    as numpy (the ranks get the same arrays)."""
+    import numpy as np
+
+    from repro_torch.serve import synth_request_trace
+
+    trace = synth_request_trace(ARCH_SERVE_REQUESTS, vocab=cfg.vocab_size, prompt_min=8, prompt_max=96,
+                                new_min=2, new_max=48, seed=0)[:EP_REQUESTS]
+    seg, pos = long_segments(np.random.default_rng(14), 1, EP_LEN)
+    g = np.random.default_rng(15)
+    batch = dict(tokens=g.integers(0, cfg.vocab_size, (1, EP_LEN)), positions=pos, segments=seg,
+                 labels=g.integers(0, cfg.vocab_size, (1, EP_LEN)), loss_mask=(seg > 0).astype(np.float32))
+    return dict(trace=trace, batch=batch)
+
+
+def ep_run(model, params, inputs: dict, tag: str) -> dict:
+    """On ``model``'s mesh: the engine serving the inputs' requests, then one
+    ``loss_sums`` with the gradients of the mean loss on the packed row
+    (remat "full": K4 twice, K5 and K6 once a layer), the kernels' counts
+    set to 0 before each and read after.  Returns the ids, the first
+    prefill's picked logits (on the host), the loss, the gradients (on the
+    card, in ``tree_leaves`` order), the (token, expert) pairs kept and
+    dropped, the launches, times and the peak."""
+    import torch
+
+    from repro_torch.serve import ContinuousBatchingEngine, ServeConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = model.cfg
+    config = ServeConfig(num_slots=8, max_len=256, l_max=1024, lookahead=32)
+    warm = ContinuousBatchingEngine(model, params, config, mesh=model.mesh)  # cuBLAS, the allocator
+    warm.submit(inputs["trace"][0][0], 2)
+    warm.run()
+    del warm
+    engine = ContinuousBatchingEngine(model, params, config, mesh=model.mesh)
+    picked, segments = [], []
+    record_prefill(engine, sink=picked, segments=segments)
+    rids = [engine.submit(p, n) for p, n in inputs["trace"]]
+    drops: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with counted_drops(drops):
+        t = time.perf_counter()
+        outputs = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    serve_launches = all_launches()
+    st = engine.stats
+    check(st.finished == len(rids), f"{tag}: {st.finished}/{len(rids)} requests finished")
+    want = {**dict.fromkeys(serve_launches, 0), "segment_flash_attention_pruned": st.prefill_calls * cfg.n_layers}
+    check(serve_launches == want, f"{tag} serve launches {serve_launches} != {want}")
+    first_calls = drops[:model.dispatch_chunks]
+    rec = dict(ids=[list(map(int, outputs[r])) for r in rids], picked=picked[0].float().cpu().numpy(),
+               serve_launches=serve_launches, tick_ms=1e3 * wall / st.ticks, ticks=st.ticks,
+               prefill_calls=st.prefill_calls, serve_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               first_prefill_pairs=(sum(d[3] for d in first_calls), sum(d[2] for d in first_calls)),
+               serve_pairs=(sum(d[3] for d in drops), sum(d[2] for d in drops)), segments=segments)
+    del engine, picked
+    batch = {k: torch.from_numpy(v).cuda() for k, v in inputs["batch"].items()}
+    leaves = tree_leaves(params)
+    # Warm-up on the first 512 tokens: the first checkpointed backward of a
+    # process imports torch._dynamo (~10 s).
+    loss_sum, count = model.loss_sums(params, {k: v[:, :512] for k, v in batch.items()})
+    torch.autograd.grad(loss_sum / count, leaves)
+    del loss_sum, count
+    free_cuda()
+    drops = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with counted_drops(drops):
+        t = time.perf_counter()
+        loss_sum, count = model.loss_sums(params, batch)
+        loss = loss_sum / count
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t
+    loss_launches = all_launches()
+    n = cfg.n_layers
+    want = {**dict.fromkeys(loss_launches, 0), "segment_flash_attention_pruned": 2 * n,
+            "segment_flash_attention_bwd_pruned_dq": n, "segment_flash_attention_bwd_pruned_dkv": n}
+    check(loss_launches == want, f"{tag} loss launches {loss_launches} != {want}")
+    # A sum per gradient: no temporary the size of a 4.5-8.9 GB slab.
+    check(math.isfinite(loss.item()) and all(math.isfinite(g.sum(dtype=torch.float32).item()) for g in grads),
+          f"{tag}: loss {loss.item()} or a gradient not finite")
+    rec.update(loss=loss.item(), grads=list(grads), loss_launches=loss_launches, loss_ms=1e3 * loss_s,
+               loss_pairs=(sum(d[3] for d in drops), sum(d[2] for d in drops)),
+               loss_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"{tag}: {len(rids)} requests, {st.ticks} ticks of {rec['tick_ms']:.2f} ms, {st.prefill_calls} "
+          f"prefill calls, peak {rec['serve_peak_gib']:.3f} GiB, launches {serve_launches}; (token, expert) "
+          f"pairs kept/dropped: first prefill {rec['first_prefill_pairs']}, the run {rec['serve_pairs']}; "
+          f"loss_sums + gradients on 1 x {EP_LEN}: loss {rec['loss']:.6f}, {rec['loss_ms']:.1f} ms, peak "
+          f"{rec['loss_peak_gib']:.3f} GiB, launches {loss_launches}, pairs kept/dropped {rec['loss_pairs']}")
+    return rec
+
+
+def ep_share(ours, ref, tol: float) -> tuple:
+    """(worst |ours - ref|, its share of the allowance tol·(1 + |ref|)),
+    taken a slice of the leading dimension at a time; ``ref`` may lie on the
+    host."""
+    import torch
+
+    err = share = 0.0
+    step = max(1, (1 << 25) // max(1, ours[0].numel() if ours.dim() else 1))
+    for i in range(0, max(1, ours.shape[0] if ours.dim() else 1), step):
+        o = ours[i:i + step].float() if ours.dim() else ours.float()
+        r = (ref[i:i + step] if ref.dim() else ref).to(o.device, torch.float32)
+        d = (o - r).abs()
+        err = max(err, d.max().item())
+        share = max(share, (d / (tol * (1 + r.abs()))).max().item())
+    return err, share
+
+
+def ep_rank_main(rank: int, world: int, init_file: str, queue, proceed, shard: dict, inputs: dict, cfg) -> None:
+    """One gloo rank of the ep phase, spawned; both ranks share the card and
+    the parent's weights (``shard``, this rank's views of them, arrive by
+    CUDA IPC).  For each of EP_CHUNKS: ``LM(cfg, mesh, dispatch_chunks)``
+    on the shard, ``ep_run``, the record on ``queue`` (its gradients stay
+    on the card, read by the parent), then wait until the parent has
+    compared them."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_host_mesh(world)
+            for i, chunks in enumerate(EP_CHUNKS):
+                model = LM(cfg, mesh=mesh, dispatch_chunks=chunks)
+                params = model.load_params(shard)
+                rec = ep_run(model, params, inputs, f"[ep] world {world} over gloo, rank {rank}, "
+                                                    f"dispatch_chunks {chunks}")
+                free_cuda()  # hand the cached blocks back: the parent compares on the same card
+                queue.put({"rank": rank, "chunks": chunks, **rec})
+                proceed[i].wait(600)
+                del rec, params, model
+                free_cuda()
+        finally:
+            dist.destroy_process_group()
+    except BaseException as exc:  # reported to the parent, which fails the phase
+        import traceback
+
+        queue.put({"rank": rank, "error": f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"})
+
+
+def ep_collect(queue, procs, n: int, tag: str) -> list:
+    from queue import Empty
+
+    out = []
+    while len(out) < n:
+        try:
+            out.append(queue.get(timeout=5))
+        except Empty:
+            check(all(p.is_alive() for p in procs),
+                  f"{tag}: a rank exited without a result: exit codes {[p.exitcode for p in procs]}")
+    for r in out:
+        check("error" not in r, f"{tag} rank {r['rank']} failed: {r.get('error')}")
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def phase_ep(rng) -> dict:
+    """Expert parallelism on full-width Arctic-480B cut to EP_LAYERS layer,
+    bf16, weights from seed 0 made once here: the engine serving the
+    trace's first EP_REQUESTS requests and one loss with its gradients, at
+    world 1 over NCCL (the single-device branch) in this process, then at
+    world EP_WORLD over gloo in spawned ranks sharing the card and this
+    process's weights (each holds its shard: 64 experts and half the dense
+    residual's width), dispatch_chunks 1 and then 2.  World 2 with one
+    chunk must keep and drop the pairs world 1 does, and its logits, loss
+    and every gradient must lie within the bf16 allowance of world 1's.
+    K1-K6 are then held at the loss's segments and K1/K4 at the prefill
+    buckets with Arctic's 56/8 heads; then the four examples run on the card.
+    Returns the launches per run and the kernels' errors."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import moe_shard
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import tree_leaves
+
+    tag, tol = "[ep]", TOL["bfloat16"]
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=EP_LAYERS)
+    inputs = ep_inputs(cfg)
+    t0 = time.perf_counter()
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    slab = sum(params["layers"][0]["moe"][k].numel() for k in ("w_in", "w_gate", "w_out")) * 2
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layer (depth cut from {get_config(EP_ARCH).n_layers}) d_model "
+          f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} experts {cfg.n_experts} top-{cfg.top_k} moe_d_ff "
+          f"{cfg.moe_d_ff} dense residual d_ff {cfg.d_ff}, {sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f}B "
+          f"params {cfg.dtype} ({slab / 1e9:.2f} GB of expert slabs), init {time.perf_counter() - t0:.1f}s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="ep-", dir=ROOT / "build"))
+    runs: dict = {}
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{work / 'nccl'}", rank=0, world_size=1)
+        try:
+            model = LM(cfg, mesh=make_host_mesh(1))
+            one = ep_run(model, model.load_params(params), inputs, f"{tag} world 1 over NCCL")
+        finally:
+            dist.destroy_process_group()
+        t = time.perf_counter()
+        ref_tree = _grad_tree(params, [g.cpu() for g in one.pop("grads")])
+        del model
+        free_cuda()
+        print(f"{tag} world 1's gradients moved to the host in {time.perf_counter() - t:.1f}s")
+        runs["world1"] = one
+
+        ctx = tmp.get_context("spawn")
+        queue, proceed = ctx.Queue(), [ctx.Event() for _ in EP_CHUNKS]
+        shared = _grad_tree(params, [t.detach() for t in tree_leaves(params)])  # leaves IPC can send
+        procs = [ctx.Process(target=ep_rank_main, args=(r, EP_WORLD, str(work / "gloo"), queue, proceed,
+                                                        moe_shard(shared, cfg, EP_WORLD, r), inputs, cfg))
+                 for r in range(EP_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            for i, chunks in enumerate(EP_CHUNKS):
+                recs = ep_collect(queue, procs, EP_WORLD, tag)
+                for rec in recs:
+                    name = f"world {EP_WORLD} rank {rec['rank']} dispatch_chunks {chunks}"
+                    grads = rec.pop("grads")
+                    if chunks == 1:
+                        want = tree_leaves(moe_shard(ref_tree, cfg, EP_WORLD, rec["rank"]))
+                        shares = {"logits": ep_share(torch.from_numpy(rec["picked"]),
+                                                     torch.from_numpy(one["picked"]), tol),
+                                  "loss": ep_share(torch.tensor(rec["loss"]), torch.tensor(one["loss"]), tol)}
+                        grad_worst = max((ep_share(g, w, tol) for g, w in zip(grads, want)), key=lambda e: e[1])
+                        shares["gradients"] = grad_worst
+                        for key, (err, share) in shares.items():
+                            check(share <= 1.0, f"{tag} {name}: {key} worst error {err:.3e} is {share:.3f} of "
+                                                f"the bf16 allowance against world 1")
+                        rec["shares"] = {k: v[1] for k, v in shares.items()}
+                        rec["max_abs_err"] = {k: v[0] for k, v in shares.items()}
+                        moved = [i for i, (a, b) in enumerate(zip(rec["ids"], one["ids"])) if a != b]
+                        print(f"{tag} {name} against world 1: worst error / share of the bf16 allowance: "
+                              + ", ".join(f"{k} {e:.3e} / {sh:.4f}" for k, (e, sh) in shares.items())
+                              + f"; generated ids equal in {len(rec['ids']) - len(moved)} of {len(rec['ids'])} "
+                                f"requests" + (f" (request {moved[0]} first differs at token "
+                                               f"{_first_diff(rec['ids'][moved[0]], one['ids'][moved[0]])})"
+                                               if moved else ""))
+                    else:
+                        print(f"{tag} {name}: loss {rec['loss']:.6f} (world 1, one dispatch: {one['loss']:.6f}), "
+                              f"every gradient finite")
+                    del grads
+                    rec.pop("segments")
+                    runs[f"world{EP_WORLD}_chunks{chunks}_rank{rec['rank']}"] = rec
+                if chunks == 1:
+                    ep_pairs_equal(one, recs, tag)
+                torch.cuda.synchronize()
+                proceed[i].set()
+        except BaseException:
+            for p in procs:  # the ranks wait for the parent: stop them now
+                p.kill()
+            raise
+        finally:
+            for p in procs:
+                p.join(120)
+                if p.is_alive():
+                    p.kill()
+        check(all(p.exitcode == 0 for p in procs), f"{tag} rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    del params, shared, ref_tree
+    free_cuda()
+    widths = dict(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head)
+    errs = hold_kernels(rng, f"{tag} {cfg.name} loss", inputs["batch"]["segments"], **widths)
+    prefill_errs = serve_holds(rng, cfg, one.pop("segments"))
+    errs = {name: max(err, prefill_errs.get(name, 0.0)) for name, err in errs.items()}
+    examples = ep_examples()
+    launches = {run: {**rec["serve_launches"]} for run, rec in runs.items()}
+    loss_launches = {run: rec["loss_launches"] for run, rec in runs.items()}
+    return dict(runs=runs, launches=launches, loss_launches=loss_launches, max_abs_err=errs, examples=examples)
+
+
+def _grad_tree(params: dict, grads: list) -> dict:
+    """``grads`` (in ``tree_leaves`` order) in the layout of ``params``: a
+    gradient tree, or with ``params``' own leaves detached, a tree that
+    carries no autograd state."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    by_id = {id(t): g for t, g in zip(tree_leaves(params), grads)}
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return by_id[id(tree)]
+
+    return walk(params)
+
+
+def _first_diff(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def ep_pairs_equal(one: dict, recs: list, tag: str) -> None:
+    """The pairs the ranks keep sum to world 1's, and so do those they drop
+    at capacity: in the first prefill and the loss always, over the whole
+    serving run when the generated ids are equal (they decide the decode
+    steps' tokens)."""
+    keys = ["first_prefill_pairs", "loss_pairs"]
+    if all(r["ids"] == one["ids"] for r in recs):
+        keys.append("serve_pairs")
+    for key in keys:
+        summed = tuple(sum(r[key][i] for r in recs) for i in range(2))
+        check(summed == tuple(one[key]), f"{tag} {key}: the ranks keep/drop {summed}, world 1 {one[key]}")
+    print(f"{tag} (token, expert) pairs kept and dropped, summed over the ranks, equal world 1's in "
+          f"{', '.join(keys)}: " + ", ".join(f"{k} {tuple(one[k])}" for k in keys))
+
+
+def ep_examples() -> dict:
+    """The four examples' card runs, side by side, each in a process of its
+    own (``odb_vs_standard_torch.py`` runs no model: the schedules and the
+    paper's cost model); prints each one's tail and returns its seconds."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t = time.perf_counter()
+    procs = {" ".join(args): subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for args in EP_EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            out[name] = time.perf_counter() - t
+            for line in stdout.strip().splitlines()[-8:]:
+                print(f"[ep] {name}: {line}")
+            check(proc.returncode == 0, f"[ep] {name} exited {proc.returncode}: {stderr[-3000:]}")
+            print(f"[ep] {name}: done {out[name]:.1f}s after the examples started")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    return out
+
+
 def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     """(FLOPs, bytes) of the least work of one K7 call with the final state:
     C.B^T once per (b, chunk) and, per (b, h, chunk), W.x over the causal
@@ -3697,13 +4094,15 @@ def main() -> None:
     archs = timed(phase_archs, np.random.default_rng(8))
     mla_hybrid = timed(phase_mla_hybrid, np.random.default_rng(12))
     mesh = timed(phase_mesh, train_seg)
+    ep = timed(phase_ep, np.random.default_rng(16))
     serve_times = timed(phase_times, np.random.default_rng(1), serve_launches)[-1]  # (8, 256)
     times = timed(phase_times_training, np.random.default_rng(3), train_seg)
     arch_times = [timed(phase_times_training, np.random.default_rng(9 + i),
                         long_segments(np.random.default_rng(11 + i), 2, 4096)[0], label=label, **widths)
                   for i, (label, widths) in enumerate(ARCH_TIME_SHAPES)]
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
-    for held in [*(rec["max_abs_err"] for rec in archs.values()), mla_hybrid["max_abs_err"], times["max_abs_err"],
+    for held in [*(rec["max_abs_err"] for rec in archs.values()), mla_hybrid["max_abs_err"], ep["max_abs_err"],
+                 times["max_abs_err"],
                  *(at["max_abs_err"] for at in arch_times)]:
         for kname, err in held.items():
             max_err[kname] = max(max_err[kname], err)
@@ -3747,6 +4146,9 @@ def main() -> None:
                                         f"its grid at 2 x {train_seg.shape[1]} (world 1 over NCCL; per rank "
                                         f"at world 2 over gloo); {MESH_TRAIN_STEPS} remat='dots' training "
                                         "steps of full-width Qwen3-0.6B")
+        entry.update(launches_ep={run: dict(serve=ep["launches"][run][kname], loss=ep["loss_launches"][run][kname])
+                                  for run in ep["runs"]},
+                     launches_ep_note=EP_NOTE)
         if kname in serve_launches:
             entry.update(
                 launches_serving=serve_launches[kname],
@@ -3785,6 +4187,9 @@ def main() -> None:
         device_launches_per_call=main_shape["device_launches"],
         launches_mla_hybrid={run: rec["ssd_scan"] for run, rec in mla_hybrid["launches"].items()},
         launches_mla_hybrid_note=MLA_HYBRID_NOTE,
+        launches_ep={run: dict(serve=ep["launches"][run]["ssd_scan"], loss=ep["loss_launches"][run]["ssd_scan"])
+                     for run in ep["runs"]},
+        launches_ep_note=EP_NOTE,
         jamba_shape={key: mla_hybrid["ssd"][key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                              "max_abs_err", "loss_shape_max_abs_err")},
     ))

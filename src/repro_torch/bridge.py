@@ -49,23 +49,25 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(np_params: dict, cfg, device=None) -> dict:
-    """The port's tree (see ``repro_torch.models.model``) from JAX params."""
+def params_from_jax(np_params: dict, cfg, device=None, mesh=None) -> dict:
+    """The port's tree (see ``repro_torch.models.model``) from JAX params;
+    with a ``mesh`` whose ``model`` axis is larger than 1, this rank's tree
+    for expert parallelism (``launch.sharding.local_moe_params``), cut
+    before anything is copied."""
+    from repro_torch.launch.sharding import local_moe_params
+
     device = resolve_device(device)
     plan = stack_plan(cfg)
     layers: list = [None] * cfg.n_layers
     for i, layer_idx in enumerate(plan.prefix_layers):
-        layers[layer_idx] = _map(np_params["prefix"][i]["sub0"], lambda a: _tensor(a, device))
+        layers[layer_idx] = np_params["prefix"][i]["sub0"]
     for u, unit in enumerate(plan.unit_layers):
         for j, layer_idx in enumerate(unit):
-            layers[layer_idx] = _map(np_params["stack"][f"sub{j}"], lambda a: _tensor(a[u], device))
-    tree = {"embed": _tensor(np_params["embed"], device)} if "embed" in np_params else {}
-    tree.update(
-        unembed=_tensor(np_params["unembed"], device),
-        final_norm=_map(np_params["final_norm"], lambda a: _tensor(a, device)),
-        layers=layers,
-    )
-    return tree
+            layers[layer_idx] = _map(np_params["stack"][f"sub{j}"], lambda a: np.asarray(a)[u])
+    tree = {"embed": np_params["embed"]} if "embed" in np_params else {}
+    tree.update(unembed=np_params["unembed"], final_norm=np_params["final_norm"], layers=layers)
+    tree = local_moe_params(tree, cfg, mesh)
+    return _map(tree, lambda a: _tensor(a, device))
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
@@ -97,9 +99,15 @@ def _zip(trees: list):
     return trees
 
 
-def params_to_jax(params: dict, cfg) -> dict:
+def params_to_jax(params: dict, cfg, mesh=None) -> dict:
     """The JAX-layout tree, as fp32 numpy arrays, from the port's tree: every
     unit's layers stacked on a leading axis under ``stack/sub{j}``, the
-    prefix layers under ``prefix[i]["sub0"]``."""
+    prefix layers under ``prefix[i]["sub0"]``.  With a ``mesh`` whose
+    ``model`` axis is larger than 1, ``params`` is this rank's tree and the
+    MoE shards are gathered over the axis first (a collective: every rank
+    of the group calls it)."""
+    from repro_torch.launch.sharding import gather_moe_params
+
+    params = gather_moe_params(params, cfg, mesh)
     return _map(jax_layout(params, cfg), lambda leaf: (
         np.stack([_array(t) for t in leaf]) if isinstance(leaf, list) else _array(leaf)))

@@ -149,8 +149,12 @@ def modelled_collectives(cfg, cell, mesh, params, pspecs, rows: int) -> dict:
       a dense ``w_out``) and one after the MoE (its shared expert and dense
       residual summed in), in the forward, and as many in the backward.
 
-    Not modelled: the lookup in the vocab-sharded embedding, the loss's
-    reductions over the vocab, and the MoE's dispatch."""
+    Not modelled: the lookup in the vocab-sharded embedding and the loss's
+    reductions over the vocab.  The MoE's dispatch needs no collective: in
+    both packages its EP is local to the rank (every rank of a ``model``
+    group holds the same rows, routes them with the replicated router and
+    runs its own experts), so its only collective is the one sum after the
+    MoE, counted above with the TP all-reduces."""
     size = mesh_shape(mesh)
     per = dict.fromkeys(COLLECTIVE_OPS, 0.0)
     counts = dict.fromkeys(COLLECTIVE_OPS, 0)

@@ -247,3 +247,107 @@ def local_shape(shape, spec: Spec, mesh) -> tuple[int, ...]:
             raise ValueError(f"dimension {n} does not divide over {entry} ({parts} parts)")
         out.append(n // parts)
     return tuple(out)
+
+
+# -----------------------------------------------------------------------------
+# The executed EP path: one rank's MoE shard of a full tree, and back
+# -----------------------------------------------------------------------------
+
+# Which dimension of an MoE layer's leaf the ``model`` axis cuts: the expert
+# slabs by expert, the shared expert and the dense residual as TP MLPs (the
+# JAX package's ``shared_specs`` / ``dense_specs`` in ``models/moe.py``).
+_EP_CUT = {("moe", "w_in"): 0, ("moe", "w_gate"): 0, ("moe", "w_out"): 0,
+           ("shared", "w_in"): 1, ("shared", "w_gate"): 1, ("shared", "w_out"): 0}
+_DENSE_CUT = {("mlp", "w_in"): 1, ("mlp", "w_gate"): 1, ("mlp", "w_out"): 0}
+
+
+def _moe_cut_dim(cfg, layer: int, path: list[str]):
+    """The dimension the ``model`` axis cuts for a layer leaf on the EP
+    path, or None for a leaf every rank holds whole."""
+    if not cfg.layer_is_moe(layer):
+        return None
+    key = tuple(path[-2:])
+    if key in _EP_CUT:
+        return _EP_CUT[key]
+    if cfg.dense_residual and key in _DENSE_CUT:
+        return _DENSE_CUT[key]
+    return None
+
+
+def _ep_coords(cfg, mesh):
+    """``(group, ep, index)`` on the ``model`` axis, None when the MoE takes
+    the single-device branch; raises when ``ep`` divides a width unevenly."""
+    from repro_torch.models.moe import ep_widths, model_axis
+
+    axis = model_axis(mesh)
+    if axis is not None:
+        ep_widths(cfg, axis[1])
+    return axis
+
+
+def _map_layers(params: dict, fn) -> dict:
+    """``fn(layer_index, path, leaf)`` over the layer leaves; the other
+    leaves are kept as they are."""
+    out = dict(params)
+    out["layers"] = [tree_map_with_path(lambda path, leaf, l=l: fn(l, path, leaf), layer)
+                     for l, layer in enumerate(params["layers"])]
+    return out
+
+
+def moe_shard(params: dict, cfg, ep: int, index: int) -> dict:
+    """The tree rank ``index`` of an EP axis of ``ep`` holds: of every MoE
+    layer the expert slabs ``[index · E/ep, (index + 1) · E/ep)`` and the
+    shared expert's and the dense residual's TP slices (``w_in``/``w_gate``
+    by columns, ``w_out`` by rows); every other leaf whole.  The leaves are
+    views of ``params`` (numpy arrays or tensors)."""
+
+    def cut(l, path, leaf):
+        dim = _moe_cut_dim(cfg, l, path)
+        if dim is None:
+            return leaf
+        n = leaf.shape[dim] // ep
+        sl = [slice(None)] * len(leaf.shape)
+        sl[dim] = slice(index * n, (index + 1) * n)
+        return leaf[tuple(sl)]
+
+    return _map_layers(params, cut)
+
+
+def local_moe_params(params: dict, cfg, mesh) -> dict:
+    """This rank's tree for the executed EP path (``models/moe.py``): its
+    :func:`moe_shard` on the mesh's ``model`` axis.
+
+    The eager port runs the rest of the model replicated over ``model``:
+    the same function on every rank, not GSPMD's placement of the JAX
+    rules above.  Without an EP axis (no mesh, no ``model`` axis, or one of
+    size 1) the tree comes back as it is."""
+    axis = _ep_coords(cfg, mesh)
+    if axis is None:
+        return params
+    _, ep, index = axis
+    return moe_shard(params, cfg, ep, index)
+
+
+def gather_moe_params(local: dict, cfg, mesh) -> dict:
+    """The inverse of :func:`local_moe_params`: every rank of a ``model``
+    group passes its tree (weights or their gradients) and gets the full
+    tree back, the cut leaves gathered over the group in rank order and
+    the others as they are.  A collective: every rank must call it."""
+    import torch
+    import torch.distributed as dist
+
+    axis = _ep_coords(cfg, mesh)
+    if axis is None:
+        return local
+    group, ep, _ = axis
+
+    def gather(l, path, leaf):
+        dim = _moe_cut_dim(cfg, l, path)
+        if dim is None:
+            return leaf
+        leaf = leaf.detach().contiguous()
+        parts = [torch.empty_like(leaf) for _ in range(ep)]
+        dist.all_gather(parts, leaf, group=group)
+        return torch.cat(parts, dim=dim)
+
+    return _map_layers(local, gather)

@@ -406,8 +406,11 @@ def mla_attention(
 
 
 def apply_attention(params, x, cfg, positions, segments=None, cache=None, cache_index=None,
-                    dest_slot=None):
-    """The attention mixer of one layer: MLA on its plain path, else GQA."""
+                    mesh=None, dest_slot=None):
+    """The attention mixer of one layer: MLA on its plain path, else GQA.
+    ``mesh`` is taken as in the JAX package, where it only places a GSPMD
+    constraint on the heads; an eager program has no such placement, so
+    here it changes nothing (``launch/perf.py`` records the same)."""
     if cfg.attn_kind == "mla":
         if dest_slot is not None:
             raise NotImplementedError(

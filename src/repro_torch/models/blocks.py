@@ -72,11 +72,15 @@ def make_layer_params(generator, cfg, layer_idx: int, dtype, device) -> Params:
 
 
 def layer_forward(params: Params, x, cfg, layer_idx: int, positions, segments, cache, cache_index,
-                  dest_slot=None):
+                  dest_slot=None, mesh=None, dispatch_chunks: int = 1):
+    """One layer.  ``mesh`` reaches the MoE, which runs expert parallelism
+    over its ``model`` axis (``params`` then holds the rank's MoE shard), and
+    the attention, as in the JAX package; ``dispatch_chunks`` is the MoE's."""
     h = apply_norm(params["norm_mixer"], x, cfg)
     if cfg.layer_kind(layer_idx) == "attn":
         mixed, new_cache = apply_attention(
-            params["mixer"], h, cfg, positions, segments, cache, cache_index, dest_slot=dest_slot
+            params["mixer"], h, cfg, positions, segments, cache, cache_index, mesh=mesh,
+            dest_slot=dest_slot,
         )
     else:
         if dest_slot is not None:
@@ -92,7 +96,8 @@ def layer_forward(params: Params, x, cfg, layer_idx: int, positions, segments, c
     h = apply_norm(params["norm_ffn"], x, cfg)
     if cfg.layer_is_moe(layer_idx):
         dense = params["mlp"] if cfg.dense_residual else None
-        ffn = moe_ffn(params["moe"], h, cfg, dense_params=dense)
+        ffn = moe_ffn(params["moe"], h, cfg, mesh=mesh, dense_params=dense,
+                      dispatch_chunks=dispatch_chunks)
     else:
         ffn = apply_mlp(params["mlp"], h, cfg.act, cfg.gated_mlp)
     return x + ffn, new_cache

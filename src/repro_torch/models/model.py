@@ -54,6 +54,7 @@ from repro_torch.models.blocks import (
     stack_plan,
 )
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.moe import ep_widths, model_axis
 from repro_torch.models.layers import (
     apply_norm,
     dense_init,
@@ -87,6 +88,14 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
+def _own_leaves(tree):
+    """``tree`` with every view replaced by a copy of its own, so a cut
+    leaf does not keep the full tensor it was cut from alive."""
+    if isinstance(tree, dict):
+        return {k: _own_leaves(v) for k, v in tree.items()}
+    return tree.clone() if tree._is_view() else tree
+
+
 def padded_vocab(vocab: int) -> int:
     return (vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN * VOCAB_ALIGN
 
@@ -111,12 +120,28 @@ class _Group(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder LM on one device: CUDA unless ``device="cpu"`` is asked for."""
+    """Decoder LM on one device: CUDA unless ``device="cpu"`` is asked for.
 
-    def __init__(self, cfg: ArchConfig, device=None) -> None:
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis, as the JAX ``LM``
+    takes one) runs every MoE layer with expert parallelism over that axis
+    (``models/moe.py``): the weights are then this rank's tree
+    (``launch.sharding.local_moe_params``; :meth:`init` cuts it), and every
+    rank of a ``model`` group runs the same rows through the rest of the
+    model, replicated.  The JAX package's other use of the mesh, the
+    sequence-parallel constraint on the residual stream (``_sp_constraint``)
+    and the attention's head constraint, are GSPMD placements with no
+    effect on an eager program, so here they are no-ops.
+    ``dispatch_chunks`` is the MoE's (the EP branch's token chunks; the JAX
+    ``LM`` always passes 1)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, mesh=None, dispatch_chunks: int = 1) -> None:
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dispatch_chunks = dispatch_chunks
+        if cfg.n_experts and (axis := model_axis(mesh)) is not None:
+            ep_widths(cfg, axis[1])  # raises unless the model axis divides every width
         self.dtype = getattr(torch, cfg.dtype)
         self.plan = stack_plan(cfg)
         if cfg.attn_impl not in ("xla", "flash", "auto"):
@@ -143,6 +168,12 @@ class LM(nn.Module):
         params["unembed"] = dense_init(generator, cfg.d_model, vp, dt, dev)
         params["layers"] = [make_layer_params(generator, cfg, l, dt, dev)
                             for l in range(cfg.n_layers)]
+        if model_axis(self.mesh) is not None:
+            from repro_torch.launch.sharding import local_moe_params
+
+            # This rank's cut of the same seeded tree, as leaves of their own.
+            local = local_moe_params(params, cfg, self.mesh)
+            params = dict(local, layers=[_own_leaves(layer) for layer in local["layers"]])
         return self.load_params(params)
 
     def load_params(self, params: Params) -> Params:
@@ -180,7 +211,7 @@ class LM(nn.Module):
         for l, (layer_params, cache) in enumerate(zip(params["layers"], caches)):
             x, cache = layer_forward(
                 layer_params, x, self.cfg, l, positions, segments, cache, cache_index,
-                dest_slot=dest_slot,
+                dest_slot=dest_slot, mesh=self.mesh, dispatch_chunks=self.dispatch_chunks,
             )
             new_caches.append(cache)
         return x, new_caches
@@ -195,7 +226,8 @@ class LM(nn.Module):
         context_fn = _dots_context if cfg.remat == "dots" else noop_context_fn
         for l, layer_params in enumerate(params["layers"]):
             def layer(h, l=l, layer_params=layer_params):
-                return layer_forward(layer_params, h, cfg, l, positions, segments, None, None)[0]
+                return layer_forward(layer_params, h, cfg, l, positions, segments, None, None,
+                                     mesh=self.mesh, dispatch_chunks=self.dispatch_chunks)[0]
 
             x = checkpoint(layer, x, use_reentrant=False, context_fn=context_fn) if remat else layer(x)
         return x
@@ -270,7 +302,8 @@ class LM(nn.Module):
             scatter = cfg.layer_kind(l) == "attn" and cfg.attn_kind == "gqa"
             x, caches[l] = layer_forward(
                 layer_params, x, cfg, l, positions, segments if scatter else None, caches[l], 0,
-                dest_slot=dest_slot if scatter else None,
+                dest_slot=dest_slot if scatter else None, mesh=self.mesh,
+                dispatch_chunks=self.dispatch_chunks,
             )
         return self._logits(params, x[:, -1:]), caches
 

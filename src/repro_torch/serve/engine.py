@@ -104,7 +104,12 @@ class ServeStats:
 class ContinuousBatchingEngine:
     """Slot-cache continuous batching over a live request queue, on one
     device: the CUDA card unless ``device="cpu"`` is asked for (it must be
-    the model's)."""
+    the model's).
+
+    ``mesh`` is the JAX engine's: it must be the model's own (``LM(cfg,
+    mesh=...)``), which the steps run through.  Every rank of a ``model``
+    group then runs the same engine on the same requests and rows, and each
+    MoE layer runs expert parallelism over the group (``models/moe.py``)."""
 
     def __init__(
         self,
@@ -112,6 +117,7 @@ class ContinuousBatchingEngine:
         params,
         config: ServeConfig,
         *,
+        mesh=None,
         device=None,
         time_fn=time.perf_counter,
         step_cache: dict | None = None,
@@ -119,6 +125,8 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model device {model.device}")
+        if mesh is not model.mesh:
+            raise ValueError(f"engine mesh {mesh} is not the model's mesh {model.mesh}")
         cfg = model.cfg
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")

@@ -32,6 +32,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import LM, layers
 from repro_torch.models.blocks import stack_plan
 from repro_torch.train import optimizer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 ARCHS = ("olmo_1b", "deepseek_7b", "yi_34b", "chameleon_34b", "hubert_xlarge", "arctic_480b")

@@ -39,6 +39,7 @@ from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
 from repro_torch.train import optimizer
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 SERVE = dict(num_slots=4, max_len=128, l_max=384, lookahead=8)
 STATS = ("decode_steps", "prefill_calls", "admitted", "finished", "generated_tokens",

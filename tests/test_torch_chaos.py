@@ -35,6 +35,7 @@ from repro_torch.chaos import (
 )
 from repro_torch.chaos import harness
 from repro_torch.data import pipeline
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 SEEDS = (0, 1, 2)
 RACY = {"worker_kill": ("reexecuted",)}  # details that depend on thread/process timing

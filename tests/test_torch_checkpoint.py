@@ -40,6 +40,7 @@ from repro_torch.stream import EpochAborted, StreamCheckpoint, StreamExecutor
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def _members(path) -> dict:

@@ -29,6 +29,7 @@ from repro_torch.core.comm import (
 )
 
 import _torch_rank_worker
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 WINDOW = {"host": 1, "cursor": 9, "staged": 2, "delivered": 7, "resident": 5,
           "quarantined_ids": [3, 42]}

@@ -41,6 +41,7 @@ from repro_torch.data import baselines, oracles
 from repro_torch.data.baselines import packed_area, sweep_batch_sizes
 from repro_torch.kernels.flash_attention import live_tile_counts
 from repro_torch.kernels.liveness import build_liveness_tables, fetched_tile_counts
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 # (dataset, scale): a few hundred records each; budgets and batch sizes are
 # those of benchmarks/throughput.py's SELECTED for the "2b" model.

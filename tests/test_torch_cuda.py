@@ -291,8 +291,8 @@ def _moe_forward_on_card_matches_cpu(arch: str, dtype: str, monkeypatch) -> None
         routed[x_flat.device.type].append([ids.cpu(), (x_flat.float() @ router_w.float()).cpu()])
         return weights, ids
 
-    def recorded_slots(ids, n_local, capacity):
-        dest_e, dest_c, keep = slots(ids, n_local, capacity)
+    def recorded_slots(ids, n_local, capacity, e_start=0):
+        dest_e, dest_c, keep = slots(ids, n_local, capacity, e_start)
         routed[ids.device.type][-1].append(keep.reshape(ids.shape).cpu())
         return dest_e, dest_c, keep
 
@@ -925,3 +925,73 @@ def test_validate_flash_sharded_world1_nccl(grid, tmp_path):
     grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
     for name, want in zip(("out", "dq", "dk", "dv"), (out.detach(), *grads)):
         assert torch.equal(rec["tensors"][name], want.cpu()), name
+
+
+EXAMPLE_ARGS = {  # the card runs of examples/*_torch.py (the default device), few steps
+    "quickstart_torch": ["--steps", "2"],
+    "serve_packed_torch": [],
+    "train_100m_torch": ["--dataset", "uniform_narrow", "--data-scale", "0.05", "--world", "2",
+                         "--l-max", "512", "--steps", "5"],
+    "odb_vs_standard_torch": [],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EXAMPLE_ARGS))
+def test_example_runs_on_card(name, tmp_path):
+    """Each example's ``main`` on the card, its default device: the model
+    examples report the CUDA device or the CUDA kernel, every one returns
+    its printout."""
+    _need_card()
+    import importlib.util
+    import pathlib
+    import sys
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"card_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    args = EXAMPLE_ARGS[name] + (["--checkpoint-dir", str(tmp_path)] if name == "train_100m_torch" else [])
+    out = module.main(args).splitlines()
+    if name == "quickstart_torch":
+        assert out[-1].startswith("device: cuda")
+    elif name == "serve_packed_torch":
+        assert out[-1].startswith("segment flash attention (CUDA kernel) output: (1, 128, 4, 32), finite=True")
+    elif name == "train_100m_torch":
+        assert out[-1] == "eta_identity=0.0 eta_quota=0.0"
+    else:
+        assert out[-1] == "ODB audit: eta_identity=0.0 eta_quota=0.0"
+
+
+@pytest.mark.cuda
+def test_ep_world1_over_nccl_is_the_single_device_branch(tmp_path):
+    """``LM(cfg, mesh)`` at world 1 over NCCL (``model`` = 1) on the smoke
+    Arctic in fp32: the loss and every gradient equal the model without a
+    mesh bitwise."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_smoke_config("arctic_480b")
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 64), generator=g).cuda()
+    batch = dict(tokens=tokens, labels=torch.roll(tokens, -1, 1), loss_mask=torch.ones_like(tokens).float())
+    leaves = tree_leaves(params)
+
+    def run(model):
+        p = model.load_params(params)
+        loss_sum, count = model.loss_sums(p, batch)
+        return (loss_sum / count).detach(), torch.autograd.grad(loss_sum / count, tree_leaves(p))
+
+    want = run(LM(cfg))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        got = run(LM(cfg, mesh=make_host_mesh(1)))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[0], want[0])
+    assert len(leaves) == len(got[1]) and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))

@@ -50,6 +50,7 @@ from repro_torch.core import (
 from repro_torch.train import compression
 
 import _torch_rank_worker
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 APPROX = dict(abs=2e-5, rel=2e-5)

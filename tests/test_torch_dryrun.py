@@ -54,6 +54,7 @@ from repro_torch.launch.shapes import SHAPE_ORDER, SHAPES, ShapeCell
 from repro_torch.models import LM
 from repro_torch.roofline import analysis
 from repro_torch.train import optimizer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 FLASH_WIDTHS = dict(rows_per_shard=2, seq=256, heads=4, kv_heads=2, head_dim=16, block_q=64, block_kv=128)
 TOL = dict(atol=2e-5, rtol=2e-5)

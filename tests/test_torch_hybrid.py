@@ -32,6 +32,7 @@ from repro_torch.models.ssm import SSMCache
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig
 from repro_torch.train import optimizer
 from test_torch_archs import _assert_trees_close, _batch, _np, _torch_batch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 ARCH = "jamba_1_5_large"
 TOL = dict(atol=2e-5, rtol=2e-5)

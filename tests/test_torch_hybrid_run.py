@@ -18,6 +18,7 @@ import torch
 from test_torch_archs import _assert_trees_close, _batch, _np, _port_grads, _torch_batch
 from test_torch_archs_run import three_trainer_steps
 from test_torch_hybrid import ARCH, TOL, _pair, weights  # noqa: F401 (the module fixture)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 def test_attention_layer_on_flash_route_matches_jax(weights):

@@ -27,6 +27,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.liveness import build_liveness_tables
 from repro_torch.kernels.ops import flash_attention, resolve_grid
 from repro_torch.kernels.ref import NEG_INF, segment_flash_attention_ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

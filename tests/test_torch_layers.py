@@ -20,6 +20,7 @@ from repro.models import layers as jax_layers
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import attention, layers
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

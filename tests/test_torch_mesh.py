@@ -60,6 +60,7 @@ from test_torch_archs import (  # noqa: F401  (jax_weights is a fixture)
     _torch_batch,
     jax_weights,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 MESHES = {
     "single": (256, lambda: make_production_mesh()),

@@ -21,6 +21,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import moe as jax_moe
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import moe
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 

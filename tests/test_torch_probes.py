@@ -40,6 +40,7 @@ from repro_torch.models import LM
 from repro_torch.models.attention import warm_flash_blocks
 from repro_torch.models.model import shift_labels
 from repro_torch.obs.metrics import MetricsRegistry
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 
 @pytest.fixture

@@ -27,6 +27,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import LM
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, synth_request_trace
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = dict(num_slots=4, max_len=128, l_max=384, lookahead=8)
@@ -138,7 +139,8 @@ def test_full_width_config_matches_jax(arch):
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -152,7 +154,7 @@ def test_port_imports_neither_jax_nor_repro():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+                assert top not in ("jax", "jaxlib", "repro", "benchmarks"), f"{path}: imports {name}"
 
 
 def test_import_leaves_jax_unloaded():

@@ -49,6 +49,7 @@ from repro_torch.models import LM, ssm
 from repro_torch.serve import ContinuousBatchingEngine, ServeConfig
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves, tree_map
 from repro_torch.train.trainer import Trainer, TrainerConfig, assemble_model_batch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 SSD_TOL = dict(atol=1e-4, rtol=1e-3)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)

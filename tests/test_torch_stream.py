@@ -41,6 +41,7 @@ from repro_torch.data.loader import OnlineDynamicLoader
 from repro_torch.data.pipeline import PipelinePolicy
 from repro_torch.stream import EpochAborted, StreamCheckpoint, StreamExecutor
 from repro_torch.stream.state import step_to_json
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 4

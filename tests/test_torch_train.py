@@ -38,6 +38,7 @@ from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import LM
 from repro_torch.train import optimizer
 from repro_torch.train.trainer import Trainer, TrainerConfig, assemble_model_batch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
