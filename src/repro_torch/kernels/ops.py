@@ -10,8 +10,10 @@ dense without them (there is nothing to build liveness from).
 the JAX package's ``custom_vjp``): the forward runs K1 or K4 and saves
 ``(q, k, v, segment_ids, out, lse)`` with the liveness tables; the backward
 runs K2+K3 or K5+K6 with the forward's block pair, grid and tables, so the
-three passes provably consume one resolution.  On CPU tensors both
-directions take the plain version.
+three passes provably consume one resolution.  Each forward on the pruned
+grid builds its tables anew and counts the build in
+``kernel_liveness_tables_built_total``.  On CPU tensors both directions take
+the plain version.
 
 :func:`ssd_chunked_scan` is the kernel-backed Mamba-2 SSD (K7), through
 :class:`_SsdScan`, an autograd Function whose forward is K7 and whose
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.flash_attention import (
     resolve_blocks,
     segment_flash_attention,
@@ -63,6 +66,10 @@ class _Flash(torch.autograd.Function):
                 tables = build_liveness_tables(
                     segment_ids, block_q=block_q, block_kv=block_kv, causal=causal
                 )
+                obs.counter(
+                    "kernel_liveness_tables_built_total",
+                    help="liveness tables built for the pruned flash kernels",
+                ).inc()
             out, lse = segment_flash_attention_pruned(
                 q, k, v, segment_ids, tables=tables or None, **kw
             )

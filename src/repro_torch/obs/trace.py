@@ -18,6 +18,14 @@ Properties the instrumented hot paths rely on:
     interleave appends under one lock; timestamps share a single monotonic
     origin so cross-thread ordering in the rendered timeline is real.
 
+Timestamps are microseconds from the origin on the tracer's clock
+(``time.perf_counter``).  At :meth:`SpanTracer.reset` and
+:meth:`SpanTracer.enable` the tracer reads its clock and the Unix clock
+together, and :meth:`SpanTracer.export` gives the origin on the Unix clock
+(``otherData.clock.origin_unix_ns``), the clock ``torch.profiler`` stamps its
+events with: a span at ``ts`` began at ``origin_unix_ns + 1000 * ts``, so a
+telemetry trace lays over a profiler trace of the same run.
+
 Nesting needs no explicit parent ids: Chrome's renderer reconstructs the
 span tree from ``X``-event containment per (pid, tid) track, which is
 exactly what lexically nested ``with tracer.span(...)`` blocks produce.
@@ -91,14 +99,26 @@ class SpanTracer:
         self._emitted = 0
         self._lock = threading.Lock()
         self._origin = clock()
+        self._pair_clocks()
         self._tids: dict[int, int] = {}
 
     # -- enablement ------------------------------------------------------------
     def enable(self) -> None:
+        self._pair_clocks()
         self.enabled = True
 
     def disable(self) -> None:
         self.enabled = False
+
+    # -- clocks ----------------------------------------------------------------
+    def _pair_clocks(self) -> None:
+        self._clock_pair = (self.clock(), time.time_ns())
+
+    @property
+    def origin_unix_ns(self) -> int:
+        """The origin (``ts`` 0) on the Unix clock, from the latest pair."""
+        t, unix_ns = self._clock_pair
+        return unix_ns - round(1e9 * (t - self._origin))
 
     # -- recording -------------------------------------------------------------
     def _tid(self) -> int:
@@ -177,7 +197,8 @@ class SpanTracer:
         return {
             "traceEvents": self.events(),
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": self.dropped},
+            "otherData": {"dropped_events": self.dropped,
+                          "clock": {"origin_unix_ns": self.origin_unix_ns}},
         }
 
     def write(self, path) -> pathlib.Path:
@@ -191,6 +212,7 @@ class SpanTracer:
             self._events.clear()
             self._emitted = 0
             self._origin = self.clock()
+            self._pair_clocks()
 
 
 _DEFAULT = SpanTracer(enabled=False)

@@ -29,9 +29,9 @@ all-reduce, optionally bf16 with error feedback.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Callable
 
 import torch
 
@@ -56,6 +56,7 @@ from repro_torch.train.optimizer import (
 )
 
 __all__ = [
+    "StepPhases",
     "Trainer",
     "TrainerConfig",
     "assemble_model_batch",
@@ -112,20 +113,28 @@ def _grads(loss, params):
     return tree_map(lambda p: grad_of[id(p)], params)
 
 
-def make_train_step(model: LM, opt_cfg: OptimizerConfig):
+def make_train_step(model: LM, opt_cfg: OptimizerConfig, phases: "StepPhases | None" = None):
     """(state, batch) -> (state, metrics) — THE train step.
 
     Loss normalization: the global masked per-token mean.  The parameters
-    and moments in ``state`` are updated in place.
+    and moments in ``state`` are updated in place.  The body runs in three
+    phases of ``phases`` (one of its own when None): forward to the loss,
+    backward (the per-layer recompute inside), optimizer (clip and AdamW).
     """
     warm = _warmer(model)
+    phases = phases or StepPhases(model.device)
 
     def train_step(state, batch):
-        warm(batch)
-        params = state["params"]
-        loss_sum, tokens = model.loss_sums(params, batch)
-        loss = loss_sum / torch.clamp(tokens, min=1.0)
-        opt_metrics = adamw_update(params, _grads(loss, params), state["opt"], opt_cfg)
+        phases.begin()
+        with phases.phase("forward"):
+            warm(batch)
+            params = state["params"]
+            loss_sum, tokens = model.loss_sums(params, batch)
+            loss = loss_sum / torch.clamp(tokens, min=1.0)
+        with phases.phase("backward"):
+            grads = _grads(loss, params)
+        with phases.phase("optimizer"):
+            opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
         return state, {"loss": loss.detach(), "tokens": tokens, **opt_metrics}
 
     return train_step
@@ -190,14 +199,73 @@ def dp_step(
     return step, init_error_state
 
 
-def _timed_phase(span_name: str, metric: str, help: str, fn: Callable):
-    """Run one step phase under a trace span + cumulative seconds counter."""
+@contextlib.contextmanager
+def _timed_phase(span_name: str, metric: str, help: str, **args):
+    """One step phase under a trace span + cumulative seconds counter."""
     t0 = time.perf_counter()
-    out = fn()
+    yield
     dt = time.perf_counter() - t0
     obs.counter(metric, help=help, unit="seconds").inc(dt)
-    obs.default_tracer().complete(span_name, t0, dt, cat="train")
-    return out
+    obs.default_tracer().complete(span_name, t0, dt, cat="train", **args)
+
+
+class StepPhases:
+    """The train step's phases: forward, backward and optimizer.
+
+    Each phase is a ``train/<phase>`` span carrying the step's index
+    (:attr:`step`, which the trainer sets before each step) and feeds the
+    host-clock counter ``train_<phase>_seconds_total``.  While the tracer is
+    on and the model lies on a CUDA device, :meth:`begin` and the end of
+    each phase record an event on the device's current stream (four a step,
+    made once and reused), and :meth:`collect`, called after the step's
+    sync, adds the card's time between them to
+    ``train_<phase>_device_seconds_total``: from the card reaching one
+    boundary to its reaching the next, idle time inside the phase included.
+    With the tracer off a step makes no event and reads none.
+    """
+
+    NAMES = ("forward", "backward", "optimizer")
+    HELP = {
+        "forward": "train step forward: loss_sums to the loss",
+        "backward": "train step backward: autograd.grad with the per-layer recompute",
+        "optimizer": "train step optimizer: gradient clip and AdamW",
+    }
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.step = 0
+        self._events: list | None = None
+        self._marked = False
+
+    def _mark(self, i: int) -> None:
+        self._events[i].record(torch.cuda.current_stream(self.device))
+
+    def begin(self) -> None:
+        """Start a step; on the card, while tracing, mark its start."""
+        self._marked = obs.default_tracer().enabled and self.device.type == "cuda"
+        if self._marked:
+            if self._events is None:
+                self._events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            self._mark(0)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        help = f"{self.HELP[name]} (host clock)"
+        with _timed_phase(f"train/{name}", f"train_{name}_seconds_total", help, step=self.step):
+            yield
+            if self._marked:
+                self._mark(self.NAMES.index(name) + 1)
+
+    def collect(self) -> None:
+        """After the step's sync: the card's time of each phase marked."""
+        if not self._marked:
+            return
+        self._marked = False
+        events = self._events
+        for i, name in enumerate(self.NAMES):
+            obs.counter(f"train_{name}_device_seconds_total",
+                        help=f"{self.HELP[name]} (card clock, while tracing)",
+                        unit="seconds").inc(events[i].elapsed_time(events[i + 1]) / 1e3)
 
 
 def staged_arrays(staged: StagedArrays, device) -> dict:
@@ -229,16 +297,12 @@ def assemble_model_batch(loader_step: LoaderStep, layout: BatchLayout, device) -
     if loader_step.device is not None:
         arrays = staged_arrays(loader_step.device, device)
     else:
-        host = _timed_phase(
-            "train/pad", "train_pad_seconds_total",
-            "host-side batch padding/assembly time",
-            lambda: global_batch_arrays(loader_step.batches, layout),
-        )
-        arrays = _timed_phase(
-            "train/device_put", "train_device_put_seconds_total",
-            "host-to-device transfer dispatch time",
-            lambda: {k: torch.from_numpy(v).to(device) for k, v in host.items()},
-        )
+        with _timed_phase("train/pad", "train_pad_seconds_total",
+                          "host-side batch padding/assembly time"):
+            host = global_batch_arrays(loader_step.batches, layout)
+        with _timed_phase("train/device_put", "train_device_put_seconds_total",
+                          "host-to-device transfer dispatch time"):
+            arrays = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     tokens = arrays["tokens"]
     if layout.needs_segments:
         segments = arrays["segments"]
@@ -292,6 +356,7 @@ class Trainer:
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.cfg = cfg or TrainerConfig()
         self._train_step = None
+        self._phases: StepPhases | None = None  # made at _build_step
         self.history: list[dict] = []
         self.attn_impl: str | None = None  # resolved at _build_step
         self.attn_grid: str | None = None  # resolved at _build_step
@@ -308,7 +373,8 @@ class Trainer:
         self.model.cfg = dataclasses.replace(
             self.model.cfg, attn_impl=self.attn_impl, attn_grid=self.attn_grid
         )
-        self._train_step = make_train_step(self.model, self.opt_cfg)
+        self._phases = StepPhases(device)
+        self._train_step = make_train_step(self.model, self.opt_cfg, self._phases)
 
     def init_state(self, generator: torch.Generator | None = None) -> dict:
         params = self.model.init(generator)
@@ -360,28 +426,23 @@ class Trainer:
                 step_t0 = time.perf_counter()
                 # Realize: pull the next aligned step out of the data path
                 # (admission + protocol rounds + layout, or a prefetch dequeue).
-                loader_step = _timed_phase(
-                    "train/realize", "train_realize_seconds_total",
-                    "data-path time to the next aligned step",
-                    lambda: next(step_iter, None),
-                )
+                with _timed_phase("train/realize", "train_realize_seconds_total",
+                                  "data-path time to the next aligned step"):
+                    loader_step = next(step_iter, None)
                 if loader_step is None:
                     break
                 batch = assemble_model_batch(loader_step, self.loader.layout, self.model.device)
 
-                def _compute():
-                    new_state, metrics = self._train_step(state, batch)
+                self._phases.step = step_idx + 1
+                with _timed_phase("train/compute", "train_compute_seconds_total",
+                                  "train_step time (dispatch; synced when tracing)",
+                                  step=step_idx + 1):
+                    state, metrics = self._train_step(state, batch)
                     if tracer.enabled and self.model.device.type == "cuda":
                         # Kernels run asynchronously: without a sync the span
                         # would end at enqueue time.  Only sync when tracing.
                         torch.cuda.synchronize(self.model.device)
-                    return new_state, metrics
-
-                state, metrics = _timed_phase(
-                    "train/compute", "train_compute_seconds_total",
-                    "train_step time (dispatch; synced when tracing)",
-                    _compute,
-                )
+                        self._phases.collect()
                 step_idx += 1
                 emitted += loader_step.metadata.emitted_samples
                 tokens_seen += loader_step.metadata.total_tokens
