@@ -56,9 +56,12 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                never; the sha256 of each step's host arrays equal across the
                paths and the per-step losses within LOSS_RTOL; the same steps
                on ``attn_grid="dense"`` launch K1 2 x 28, K2 and K3 28 times
-               per step, K4-K6 never, with the same digests and losses; per
-               run tokens/s (and over steps 2..4, which leave out the first
-               step's warm-up and the data path's drain after the last),
+               per step, K4-K6 never, with the same digests and losses; in
+               every run the AdamW kernels launched 4 + 1 + 4 times a step, in
+               ``kernels/adamw.LAUNCHES`` and in the registry's
+               ``kernel_adamw_launches_total``; per run tokens/s (and over
+               steps 2..4, which leave out the first step's warm-up and the
+               data path's drain after the last),
                step time, per-step ``train/realize``, ``train/pad`` and
                ``train/device_put`` seconds, the prefetch thread's hits,
                misses and wait, the worker pool's counts, peak memory;
@@ -280,7 +283,15 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                over 16 at d_head 80, bidirectional; Yi-34B's and Arctic-480B's
                56 over 8, causal); at each of these shapes the timed inputs
                are first held against the plain version (K1-K6, bf16);
-19. kernels  — one JSON line with every ported kernel.
+19. adamw    — the multi-tensor AdamW (``kernels/adamw.py``, no TPU
+               kernel) at full-width Qwen3-0.6B's 311 leaves (bf16 weights
+               and gradients, fp32 moments, a clipped step): held against the
+               plain version given the kernel's norm (bit for bit) and the
+               plain norm (relative 1e-6), then timed beside its bound (24 B
+               a weight once), the plain version and, as a yardstick the port
+               never calls, ``clip_grad_norm_(foreach=True)`` with
+               ``torch.optim.AdamW(fused=True)`` over the same leaves;
+20. kernels  — one JSON line with every ported kernel, and the AdamW kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -356,6 +367,12 @@ SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-3), "bfloat16": dict(atol=2e-2, rt
 # the ssm_train phase's first step (the SSD of every layer's forward)
 SSD_TIMES = ((8, 2048), (1, 32768), (2, 6144))
 SSD_BF16_KERNELS = 4  # device kernels of one bf16 K7 call: scores, chunk states, state pass, outputs
+# The multi-tensor AdamW, which replaces no TPU kernel.
+ADAMW = "src/repro_torch/kernels/csrc/adamw.cu"
+ADAMW_REPLACES = ("none: src/repro/train/optimizer.py is plain jnp, which XLA fuses under jit; "
+                  "eager PyTorch launches each op as a kernel")
+# its launches in one step of Qwen3-0.6B's 311 leaves (four groups of at most 80)
+ADAMW_STEP_LAUNCHES = {"adamw_sqnorm": 4, "adamw_finish": 1, "adamw_update": 4}
 SSM_ROWS, SSM_PROMPT, SSM_DECODE = 8, 2048, 32  # the ssm phase's prefill and decode
 SSM_RAIL = (2, 512, 384)  # fp32 rail: rows, tokens, prefill length before teacher forcing
 # The SSM training run: the train launcher's flags (steps of 2 x 3072 to
@@ -1005,6 +1022,7 @@ def train_run(grid: str, path: str = "stream+prefetch", profile_steps: int = 0) 
     import torch
 
     from repro_torch import obs
+    from repro_torch.kernels import adamw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as train_launcher
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -1045,18 +1063,21 @@ def train_run(grid: str, path: str = "stream+prefetch", profile_steps: int = 0) 
     tracer.enable()  # the trainer then syncs the card at the end of each step
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    adamw.reset_launches()
     t0 = time.perf_counter()
     state, steps = trainer.train_epoch(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - sum(hash_s)
     del loader.epoch, loader.streaming_epoch
     launches = dict(fa.LAUNCHES)
+    adamw_launches = dict(adamw.LAUNCHES)
     tracer.disable()
     events = tracer.events()
     step_s = [e["dur"] / 1e6 - h for e, h in
               zip([e for e in events if e["name"] == "train/step"], hash_s)]
     phases = step_phases(events, hash_s)
     tokens = reg.flat()["train_tokens_total"]
+    adamw_total = reg.flat().get("kernel_adamw_launches_total", 0)
     peak = torch.cuda.max_memory_allocated()
     check(steps == TRAIN_STEPS and len(trainer.history) == steps, f"{steps} steps run")
     check(len(digests) == steps, f"{tag}: {len(digests)} steps digested")
@@ -1073,6 +1094,12 @@ def train_run(grid: str, path: str = "stream+prefetch", profile_steps: int = 0) 
     check(launches == want, f"{tag}: launches {launches} != {want}")
     print(f"{tag}: launches {launches} ({steps} steps x {cfg.n_layers} layers; "
           f"remat runs the forward twice)")
+    want = {name: steps * k for name, k in ADAMW_STEP_LAUNCHES.items()}
+    check(adamw_launches == want and adamw_total == sum(want.values()),
+          f"{tag}: AdamW launches {adamw_launches}, kernel_adamw_launches_total {adamw_total}; "
+          f"want {want} ({steps} steps of {ADAMW_STEP_LAUNCHES})")
+    print(f"{tag}: AdamW launches {adamw_launches}, kernel_adamw_launches_total {adamw_total:.0f} "
+          f"({steps} steps, every one through the kernel)")
     loss_tokens = [rec["tokens"] for rec in trainer.history]
     tokens_2_4 = sum(loss_tokens[1:]) / sum(step_s[1:])
     print(f"{tag}: tokens/s {tokens / wall:.1f} ({tokens:.0f} real tokens in {wall:.3f}s, the "
@@ -1098,7 +1125,8 @@ def train_run(grid: str, path: str = "stream+prefetch", profile_steps: int = 0) 
 
         profile_run(run, "train", "step")
     print(f"{tag}: {time.perf_counter() - t_run:.1f}s in all")
-    return dict(launches=launches, losses=[r["loss"] for r in trainer.history],
+    return dict(launches=launches, adamw_launches=adamw_launches,
+                losses=[r["loss"] for r in trainer.history],
                 grad_norms=[r["grad_norm"] for r in trainer.history], step_s=step_s,
                 tokens_per_s=tokens / wall, tokens_per_s_2_4=tokens_2_4, peak_gib=peak / 2**30,
                 digests=digests, phases=phases)
@@ -1107,7 +1135,8 @@ def train_run(grid: str, path: str = "stream+prefetch", profile_steps: int = 0) 
 def phase_training() -> dict:
     """Full-width training on the default (pruned) route over three data
     paths, then on the dense route from the same weights and data; returns
-    the kernels' launches, each from its own route's default-path run."""
+    the kernels' launches, each from its own route's default-path run, and
+    the AdamW kernels' (under ``"adamw"``) from the pruned default-path run."""
     import torch
 
     runs = {}
@@ -1131,6 +1160,7 @@ def phase_training() -> dict:
                       for name, run in [*runs.items(), ("dense", dense)]))
     launches = {name: dense["launches"][name] for name in KERNELS if KERNELS[name][2] == "dense"}
     launches.update({name: pruned["launches"][name] for name in KERNELS if KERNELS[name][2] == "pruned"})
+    launches["adamw"] = pruned["adamw_launches"]
     return launches
 
 
@@ -3944,10 +3974,10 @@ def ssd_work(b, s, h=24, p=64, n=128, chunk=256, elem=2):
     return flops, nbytes
 
 
-def ssd_device_launches(call, calls: int = 10) -> tuple:
-    """The device launches behind K7 calls under ``torch.profiler``, after
-    two warm-up calls under the same profiler that it does not record: the
-    kernel launches per call, counted on the host (``cudaLaunchKernel``,
+def device_launches(call, calls: int = 10) -> tuple:
+    """The device launches behind calls of ``call`` (K7, the AdamW kernels)
+    under ``torch.profiler``, after two warm-up calls under the same
+    profiler that it does not record: the kernel launches per call, counted on the host (``cudaLaunchKernel``,
     which the profiler records every time), and by kernel name (launches
     recorded on the device per call, mean ms per launch).  The device side
     can miss a whole call's events now and then, so it names the kernels
@@ -4011,7 +4041,7 @@ def ssd_time(rng, b: int, s: int, h: int = 24) -> dict:
 
     args, err = hold_ssd(rng, b, s, h)
     call = lambda: ssd.ssd_scan(*args, chunk=256, return_final_state=True)  # noqa: E731
-    per_call, kernels = ssd_device_launches(call)
+    per_call, kernels = device_launches(call)
     check(per_call == SSD_BF16_KERNELS and len(kernels) == SSD_BF16_KERNELS,
           f"a bf16 K7 call must launch {SSD_BF16_KERNELS} device kernels: the profiler "
           f"counted {per_call} launches per call, of the kernels {sorted(kernels)}")
@@ -4051,6 +4081,79 @@ def phase_times_ssd(rng) -> list:
     (8, 2048), at one long sequence and at the first SSM training step's
     (2, 6144), with mamba2's 24 heads."""
     return [ssd_time(rng, b, s) for b, s in SSD_TIMES]
+
+
+def phase_times_adamw() -> dict:
+    """The multi-tensor AdamW at full-width Qwen3-0.6B's 311 leaves: one
+    clipped step held against the plain version, then the kernel, the plain
+    version and the library yardstick timed (module docstring, phase 19)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw
+    from repro_torch.models import LM
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import tree_leaves
+
+    shapes = [tuple(p.shape) for p in tree_leaves(LM(get_config("qwen3_0_6b"), device="meta").init())]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = [(torch.randn(s, generator=gen, device="cuda") * 0.02).bfloat16() for s in shapes]
+    grads = [(torch.randn(s, generator=gen, device="cuda") * 1e-3).bfloat16() for s in shapes]
+    cfg = optimizer.OptimizerConfig()
+    state = optimizer.init_opt_state(params, cfg)
+    plain = [p.clone() for p in params]
+    plain_state = optimizer.init_opt_state(plain, cfg)
+    own = float(optimizer.global_norm(grads))
+    adamw.reset_launches()
+    metrics = optimizer.adamw_update(params, grads, state, cfg)
+    launches = dict(adamw.LAUNCHES)
+    norm = float(metrics["grad_norm"])
+    patched, optimizer.global_norm = optimizer.global_norm, lambda tree: metrics["grad_norm"].clone()
+    try:
+        optimizer.adamw_update_plain(plain, grads, plain_state, cfg)
+    finally:
+        optimizer.global_norm = patched
+    exact = all(torch.equal(a, b) for a, b in zip(tree_leaves([params, state]), tree_leaves([plain, plain_state])))
+    check(norm > cfg.grad_clip and abs(norm - own) <= 1e-6 * own,
+          f"adamw: norm {norm} against the plain {own} (rtol 1e-6; the step must be clipped)")
+    check(exact, "adamw: p, m, v or the step differ from the plain version's given the kernel's norm")
+    check(launches == ADAMW_STEP_LAUNCHES, f"adamw: launches {launches} for one step of 311 leaves")
+    call = lambda: optimizer.adamw_update(params, grads, state, cfg)  # noqa: E731
+    ms = cuda_ms(call, iters=20, warmup=3)
+    per_call, kernels = device_launches(call)
+    check(per_call == sum(launches.values()) and all("adamw_" in k for k in kernels),
+          f"adamw: {per_call} device launches a call of the kernels {sorted(kernels)}, not {launches}")
+    plain_ms = cuda_ms(lambda: optimizer.adamw_update_plain(plain, grads, plain_state, cfg), iters=5, warmup=1)
+    del plain, plain_state
+    torch.cuda.empty_cache()
+    leaves = [p.detach().clone().requires_grad_() for p in params]
+    for p, g in zip(leaves, grads):
+        p.grad = g.clone()
+    opt = torch.optim.AdamW(leaves, lr=cfg.lr, betas=cfg.betas, eps=cfg.eps,
+                            weight_decay=cfg.weight_decay, fused=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(leaves, cfg.grad_clip, foreach=True)
+        opt.step()
+
+    library_ms = cuda_ms(library_step, iters=20, warmup=3)
+    library_step_ms = cuda_ms(opt.step, iters=20, warmup=3)
+    del leaves, opt
+    n = sum(p.numel() for p in params)
+    nbytes = 24 * n  # the norm reads g; the update reads p, g, m, v and writes p, m, v
+    flops = 20.0 * n  # the square and sum, and the update's ~18 operations a weight
+    bound_ms = 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
+    print(f"[times] adamw Qwen3-0.6B {len(shapes)} leaves {n} weights (bf16 weights and gradients, fp32 moments, "
+          f"clipped: norm {norm:.6f}, plain {own:.6f}): kernel_ms {ms:.4f} (one call, CUDA events over 20) "
+          f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (clip_grad_norm_ foreach + "
+          f"AdamW fused, bf16 moments; the step alone {library_step_ms:.4f}) bound_ms {bound_ms:.4f} (bytes: "
+          f"{nbytes / 1e9:.2f} GB) bound share {bound_ms / ms:.4f}; launches a step {sum(launches.values())}; "
+          f"bitwise equal to the plain version given the kernel's norm")
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_step_ms=library_step_ms, bound_ms=bound_ms, bytes=nbytes, launches=launches,
+                leaves=len(shapes), weights=n, norm_rel_err=abs(norm - own) / own)
 
 
 def main() -> None:
@@ -4101,6 +4204,7 @@ def main() -> None:
                         long_segments(np.random.default_rng(11 + i), 2, 4096)[0], label=label, **widths)
                   for i, (label, widths) in enumerate(ARCH_TIME_SHAPES)]
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
+    adamw_times = timed(phase_times_adamw)
     for held in [*(rec["max_abs_err"] for rec in archs.values()), mla_hybrid["max_abs_err"], ep["max_abs_err"],
                  times["max_abs_err"],
                  *(at["max_abs_err"] for at in arch_times)]:
@@ -4192,6 +4296,16 @@ def main() -> None:
         launches_ep_note=EP_NOTE,
         jamba_shape={key: mla_hybrid["ssd"][key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                              "max_abs_err", "loss_shape_max_abs_err")},
+    ))
+    kernels.append(dict(
+        name="adamw", route="cuda", source=ADAMW, replaces=ADAMW_REPLACES,
+        launches=train_launches["adamw"], launches_note=f"{TRAIN_STEPS} training steps of Qwen3-0.6B's 311 "
+                                                        "leaves, the [train] phase's pruned default-path run",
+        launches_times=adamw_times["launches"], launches_times_note="the times phase's one held step",
+        ms=adamw_times["ms"], plain_ms=adamw_times["plain_ms"],
+        bound_ms=adamw_times["bound_ms"], bound_by="bytes", library_ms=adamw_times["library_ms"],
+        library_step_ms=adamw_times["library_step_ms"], norm_rel_err=adamw_times["norm_rel_err"],
+        shape=[adamw_times["leaves"], adamw_times["weights"]], dtype="bfloat16 weights, float32 moments",
     ))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -22,13 +22,13 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_bwd", "ssd_scan")
+SOURCES = ("flash_fwd", "flash_bwd", "ssd_scan", "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_c_int, _c_float, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_c_int, _c_float, _c_int64, _ptr = ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p
 # (argtypes, restype) of every exported function, by library.
 SIGNATURES = {
     "flash_fwd": {
@@ -59,6 +59,15 @@ SIGNATURES = {
         #  B, S, H, P, N, chunk, x/b/c batch and row strides, stream)
         "ssd_scan_fwd": ([_c_int, _c_int] + [_ptr] * 11 + [_c_int] * 12 + [_ptr], _c_int),
         "ssd_error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "adamw": {
+        # (g dtype, device, host table, leaves, blocks, chunk, partials, stream)
+        "adamw_sqnorm": ([_c_int, _c_int, _ptr, _c_int, _c_int, _c_int64, _ptr, _ptr], _c_int),
+        # (device, partials, count, step, scalars, host constants, stream)
+        "adamw_finish": ([_c_int, _ptr, _c_int, _ptr, _ptr, _ptr, _ptr], _c_int),
+        # (p, g, m dtypes, device, host table, leaves, blocks, chunk, scalars, host constants, stream)
+        "adamw_update": ([_c_int] * 4 + [_ptr, _c_int, _c_int, _c_int64, _ptr, _ptr, _ptr], _c_int),
+        "adamw_error_string": ([_c_int], ctypes.c_char_p),
     },
 }
 

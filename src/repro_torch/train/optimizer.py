@@ -12,7 +12,10 @@ updates the parameters and both moments **in place** under
 ``torch.no_grad()``: a functional update would hold a second copy of the
 weights and moments on the card at the step's peak.  The step counter, the
 learning rate and the norm stay on the parameters' device, so a step needs
-no host sync.
+no host sync.  On CUDA leaves the clip and the update run in the
+multi-tensor kernels of ``kernels/adamw.py`` (a few launches a step, where
+the plain version launches ~30 kernels a leaf); on CPU and meta leaves
+:func:`adamw_update_plain` runs, the same arithmetic op by op.
 
 Parameter trees are nested dicts and lists of tensors; their leaves are
 visited in one fixed order (dict keys sorted, lists in order).
@@ -25,6 +28,8 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.kernels import adamw as adamw_kernel
 
 Params = Any
 
@@ -110,7 +115,22 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, opt_state: dict, cfg: OptimizerConfig) -> dict:
     """One AdamW step, in place on ``params`` and ``opt_state``; returns the
-    metrics ``{"lr", "grad_norm"}`` (tensors on the parameters' device)."""
+    metrics ``{"lr", "grad_norm"}`` (tensors on the parameters' device).
+    CUDA leaves go to the multi-tensor kernel, which launches or raises;
+    other leaves take :func:`adamw_update_plain`."""
+    leaves = tree_leaves(params)
+    if leaves[0].device.type == "cuda":
+        return adamw_kernel.adamw_step(
+            leaves, tree_leaves(grads), tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
+            opt_state["step"], cfg,
+        )
+    return adamw_update_plain(params, grads, opt_state, cfg)
+
+
+@torch.no_grad()
+def adamw_update_plain(params: Params, grads: Params, opt_state: dict, cfg: OptimizerConfig) -> dict:
+    """:func:`adamw_update` op by op in eager PyTorch, on any device: the
+    kernel's plain version."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     opt_state["step"] += 1
     step = opt_state["step"].float()

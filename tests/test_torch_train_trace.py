@@ -1,8 +1,9 @@
 """The train step's phases as the trainer records them: a ``train/forward``,
 ``train/backward`` and ``train/optimizer`` span a step inside its
 ``train/compute`` and ``train/step``, their host-clock counters, and, on the
-card while tracing, their device time from CUDA events and the count of
-liveness-table builds; with the tracer off, no span and no CUDA event.
+card while tracing, their device time from CUDA events and the counts of
+liveness-table builds and AdamW kernel launches; with the tracer off, no
+span and no CUDA event.
 Also the tracer's clock laid over ``torch.profiler``'s.
 
 The file imports neither JAX nor the JAX package; the card test skips
@@ -19,7 +20,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import BucketSpec, OdbConfig
 from repro_torch.data import OnlineDynamicLoader, get_dataset
 from repro_torch.models import LM
-from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.kernels import adamw
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, tree_leaves
 from repro_torch.train.trainer import StepPhases, Trainer, TrainerConfig
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
 
@@ -116,6 +118,7 @@ def test_phase_spans_nest_in_each_step(layout, clean_obs, monkeypatch):
     flat = registry.flat()
     assert not set(DEVICE) & set(flat)
     assert "kernel_liveness_tables_built_total" not in flat  # the CPU takes the plain version
+    assert "kernel_adamw_launches_total" not in flat  # and so does the optimizer
 
 
 def test_untraced_step_records_no_span_and_no_event(clean_obs, monkeypatch):
@@ -193,6 +196,9 @@ def test_phase_device_time_and_table_builds_on_card(clean_obs):
     after = registry.flat()
     delta = {k: after.get(k, 0.0) - seen["before"].get(k, 0.0) for k in after}
     assert delta["kernel_liveness_tables_built_total"] == 2 * trainer.model.cfg.n_layers
+    leaves = tree_leaves(state["params"])
+    launches = adamw.plan([p.numel() for p in leaves], [p.dtype for p in leaves])
+    assert delta["kernel_adamw_launches_total"] == 2 * len(launches) + 1  # the optimizer's kernels, one step
     assert all(delta[k] > 0 for k in DEVICE)
     compute = _spans(tracer)["train/compute"][-1]
     assert sum(delta[k] for k in DEVICE) <= (compute[1] - compute[0]) / 1e6
