@@ -36,7 +36,7 @@ ROOT = HERE.parent
 
 def control_readings(name: str, config: dict, traffic: dict, seed: int, device) -> dict:
     """{variant: {number: reading}} for one seed."""
-    from odb_bench import harness
+    from odb_bench import harness, weights
     from odb_bench.reference import data as ref_data
 
     cfg = harness.port_config(config)
@@ -52,12 +52,13 @@ def control_readings(name: str, config: dict, traffic: dict, seed: int, device) 
         steps.append(checker.step(i, ranks, md.samples_per_rank, md.tokens_per_rank)[1])
     it.close()
     family = importlib.import_module(f"odb_bench.reference.{config['run']['family']}")
-    ref = harness.reference_readings(family, config, specs, seed, device, steps)
+    start = [w.cpu() for w in weights.make(specs, seed, device)]
+    ref = harness.reference_readings(family, config, specs, start, device, steps)
     counted = harness.counted_leaves(ref["grad"])
     half = [[(r, t) for r, t in s if r < config["run"]["world"] // 2] for s in steps]
     out = {"data_faults": len(checker.faults)}
     for variant, samples, quant in (("fp8", steps, "fp8"), ("half_batch", half, None)):
-        stand_in = harness.reference_readings(family, config, specs, seed, device, samples, quant)
+        stand_in = harness.reference_readings(family, config, specs, start, device, samples, quant)
         out[variant] = harness.compare(stand_in, ref, counted)
     return out
 

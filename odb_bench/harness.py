@@ -222,8 +222,15 @@ def run_cell(name: str, config: dict, traffic: dict, window: dict, seed: int, se
     cfg = port_config(config)
     specs = leaf_specs(cfg)
     paths = [p for p, _, _ in specs]
+    start = weights.make(specs, seed, device)
+    # The program updates its leaves in place: the readings and the
+    # reference take the start from this host copy, not from a redraw.
+    start_host = weights.host_like(start, pin=on_card)
+    for h, w in zip(start_host, start):
+        h.copy_(w)
     model = LM(cfg, device=device)
-    params = model.load_params(weights.unflatten(zip(paths, weights.make(specs, seed, device))))
+    params = model.load_params(weights.unflatten(zip(paths, start)))
+    del start
     opt_cfg = OptimizerConfig(**OPTIMIZER)
     state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
     synchronize(device)
@@ -269,17 +276,20 @@ def run_cell(name: str, config: dict, traffic: dict, window: dict, seed: int, se
         synchronize(device)
         parts["warmup_s"] = time.perf_counter() - t_warmup
         t0 = time.perf_counter()
+        if on_card:
+            at["program_bytes"] = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
         b1 = OPTIMIZER["betas"][0]
         program["loss"] = [float(x) for x in losses]
         program["grad"] = (moment1[0] / (1 - b1)).tolist() if moment1 else []
-        with torch.no_grad():
-            start = weights.make(specs, seed, device)
-            program["change"] = [float((p.float() - w.float()).norm())
-                                 for (_, p), w in zip(weights.flatten(after["state"]["params"]), start)]
-            del start
+        with torch.no_grad():  # one start leaf on the card at a time
+            program["change"] = [float((p.float() - w.to(p.device).float()).norm())
+                                 for (_, p), w in zip(weights.flatten(after["state"]["params"]), start_host)]
         after.clear()
         synchronize(device)
         at["readings_s"] = time.perf_counter() - t0
+        if on_card:
+            at["readings_peak"] = torch.cuda.max_memory_allocated(device)
         at["counters0"] = dict(registry.flat())
         at["accounting0"] = dataclasses.replace(loader.accounting)
         if trace_on:
@@ -378,9 +388,15 @@ def run_cell(name: str, config: dict, traffic: dict, window: dict, seed: int, se
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
-    checks = check(config, traffic, records, seed, vocab, feed, program, specs, device, limits, log)
+    checks = check(config, traffic, records, seed, vocab, feed, program, specs, start_host, device, limits, log)
     info["check_s"] = time.perf_counter() - t
+    if on_card:
+        gib = 2.0 ** -30
+        log(f"[odb_bench] device peak: readings {at['readings_peak'] * gib} GiB, "
+            f"{(at['readings_peak'] - at['program_bytes']) * gib} GiB over the program's "
+            f"{at['program_bytes'] * gib} GiB; check {torch.cuda.max_memory_allocated(device) * gib} GiB")
     log(f"[odb_bench] check {info['check_s']:.1f} s: "
         + " ".join(f"{k} {v['value']} (limit {v['limit']})" for k, v in checks.items()))
     correct = all(v["value"] <= v["limit"] for v in checks.values())
@@ -389,7 +405,7 @@ def run_cell(name: str, config: dict, traffic: dict, window: dict, seed: int, se
             "checks": checks}
 
 
-def check(config, traffic, records, seed, vocab, feed, program, specs, device, limits,
+def check(config, traffic, records, seed, vocab, feed, program, specs, start, device, limits,
           log=print) -> dict:
     """The numbers compared, each with its limit: every delivered step's
     arrays against the records, and the program's first steps against the
@@ -406,7 +422,7 @@ def check(config, traffic, records, seed, vocab, feed, program, specs, device, l
         log(f"[odb_bench] data fault: {line}")
 
     family = importlib.import_module(f"odb_bench.reference.{config['run']['family']}")
-    ref = reference_readings(family, config, specs, seed, device, steps_samples)
+    ref = reference_readings(family, config, specs, start, device, steps_samples)
     counted = counted_leaves(ref["grad"])
     log(f"[odb_bench] losses: program {program['loss']} reference {ref['loss']}; "
         f"{len(counted)} of {len(ref['grad'])} leaves counted in the change")
@@ -418,9 +434,9 @@ def check(config, traffic, records, seed, vocab, feed, program, specs, device, l
     return {k: {"value": v, "limit": limits[k]} for k, v in checks.items() if k in limits}
 
 
-def reference_readings(family, config, specs, seed, device, steps_samples, quant=None) -> dict:
-    """The reference's three steps from the seed's weights, on ``device``,
-    in float32 with TF32 off."""
+def reference_readings(family, config, specs, start, device, steps_samples, quant=None) -> dict:
+    """The reference's three steps from the start weights ``start`` (host
+    tensors in leaf order), on ``device``, in float32 with TF32 off."""
     import torch
 
     from odb_bench.reference import train as ref_train
@@ -428,14 +444,13 @@ def reference_readings(family, config, specs, seed, device, steps_samples, quant
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     paths = [p for p, _, _ in specs]
-    start = weights.make(specs, seed, device)
     steps = [[torch.as_tensor(s, dtype=torch.int64, device=device) for _, s in samples]
              for samples in steps_samples]
 
     def loss_fn(leaves, samples, quant_):
         return family.loss_sums(weights.unflatten(zip(paths, leaves)), samples, config, quant_)
 
-    return ref_train.train_readings(loss_fn, start, steps, OPTIMIZER, quant=quant)
+    return ref_train.train_readings(loss_fn, start, steps, OPTIMIZER, device, quant=quant)
 
 
 def counted_leaves(ref_grad) -> list:
