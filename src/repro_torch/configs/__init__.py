@@ -1,4 +1,5 @@
-"""Architecture configs (``--arch <id>``): the JAX package's ten."""
+"""Architecture configs (``--arch <id>``): the JAX package's ten, and the
+port's own (``PORT_ARCH_IDS``), which the JAX package does not describe."""
 
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ ARCH_IDS = (
     "hubert_xlarge",
 )
 
+PORT_ARCH_IDS = ("deepseek_v2_lite",)
+
 _ALIASES = {
     "chameleon-34b": "chameleon_34b",
     "qwen3-0.6b": "qwen3_0_6b",
@@ -30,13 +33,14 @@ _ALIASES = {
     "jamba-1.5-large-398b": "jamba_1_5_large",
     "mamba2-130m": "mamba2_130m",
     "hubert-xlarge": "hubert_xlarge",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 
 def _module(arch: str):
     arch = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
+    if arch not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS + PORT_ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -1,4 +1,4 @@
-"""Attention: GQA/MQA/MHA and MLA (DeepSeek-V3), their caches, segment masking.
+"""Attention: GQA/MQA/MHA and MLA (DeepSeek-V3, DeepSeek-V2-Lite), their caches, segment masking.
 
 GQA has three paths: cache-free attention (training), the slot-scatter
 prefill (serving) and the per-slot decode over the cache.  The first two
@@ -34,7 +34,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm, yarn_frequencies, yarn_mscale
 
 Params = dict[str, Any]
 
@@ -68,12 +68,20 @@ def make_attention_params(generator, cfg, dtype, device) -> Params:
 
 
 def _make_mla_params(generator, cfg, dtype, device) -> Params:
+    """The latent projections; without a query latent (``q_lora_rank`` 0)
+    one query projection ``w_q`` in place of ``w_dq``, ``q_norm``, ``w_uq``."""
     d, h = cfg.d_model, cfg.n_heads
     nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if cfg.q_lora_rank:
+        query = {
+            "w_dq": dense_init(generator, d, cfg.q_lora_rank, dtype, device),
+            "q_norm": torch.ones((cfg.q_lora_rank,), dtype=dtype, device=device),
+            "w_uq": dense_init(generator, cfg.q_lora_rank, h * (nope + rope), dtype, device),
+        }
+    else:
+        query = {"w_q": dense_init(generator, d, h * (nope + rope), dtype, device)}
     return {
-        "w_dq": dense_init(generator, d, cfg.q_lora_rank, dtype, device),
-        "q_norm": torch.ones((cfg.q_lora_rank,), dtype=dtype, device=device),
-        "w_uq": dense_init(generator, cfg.q_lora_rank, h * (nope + rope), dtype, device),
+        **query,
         "w_dkv": dense_init(generator, d, cfg.kv_lora_rank + rope, dtype, device),
         "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=dtype, device=device),
         "w_uk": dense_init(generator, cfg.kv_lora_rank, h * nope, dtype, device),
@@ -343,6 +351,17 @@ def _mla_block_sdpa(q_nope, q_rope, k_nope, k_rope, v, q_pos, k_pos, q_seg, k_se
     return torch.cat(outs, dim=1)
 
 
+def mla_rope(x: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    """RoPE on MLA's rope dims: the rotation of halves, after DeepSeek-V2's
+    pairing where ``rope_pairing="pairs"``, and with YaRN's frequencies
+    where ``yarn_factor`` > 0.  The published code also scales cos and sin
+    by mscale(s, mscale) / mscale(s, mscale_all_dim), which is 1 where the
+    two are equal, as DeepSeek-V2 publishes them; so nothing scales them
+    here."""
+    freqs = yarn_frequencies(x.shape[-1], cfg.rope_theta, cfg.yarn_factor, x.device) if cfg.yarn_factor else None
+    return apply_rope(x, positions, cfg.rope_theta, freqs=freqs, pairs=cfg.rope_pairing == "pairs")
+
+
 def mla_attention(
     params: Params,
     x: torch.Tensor,  # (B, S, d)
@@ -354,20 +373,27 @@ def mla_attention(
 ) -> tuple[torch.Tensor, MLACache | None]:
     """Multi-head latent attention.  Queries and keys/values go through
     low-rank latents (``q_norm`` and ``kv_norm`` are RMS norms of the
-    latents); the last ``qk_rope_dim`` columns of each head's query and of
-    the kv down-projection carry RoPE, the latter as one key shared by every
-    head.  Scores are scaled by 1/√(nope + rope)."""
+    latents), or the queries through one projection ``w_q`` where
+    ``q_lora_rank`` is 0; the last ``qk_rope_dim`` columns of each head's
+    query and of the kv down-projection carry RoPE, the latter as one key
+    shared by every head.  Scores are scaled by 1/√(nope + rope), and with
+    YaRN by its temperature squared (:func:`mla_rope`)."""
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     scale = 1.0 / ((nope + rope) ** 0.5)
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        scale = scale * yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
 
-    cq = rms_norm(x @ params["w_dq"], params["q_norm"])
-    q = (cq @ params["w_uq"]).reshape(b, s, h, nope + rope)
-    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ params["w_dq"], params["q_norm"])
+        q = (cq @ params["w_uq"]).reshape(b, s, h, nope + rope)
+    else:
+        q = (x @ params["w_q"]).reshape(b, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], mla_rope(q[..., nope:], positions, cfg)
     dkv = x @ params["w_dkv"]
     ckv = rms_norm(dkv[..., :r], params["kv_norm"])
-    k_rope = apply_rope(dkv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    k_rope = mla_rope(dkv[..., r:][:, :, None, :], positions, cfg)[:, :, 0, :]
 
     if cache is not None and s == 1:
         # Decode, weight-absorbed: attend in the latent space, so a step costs

@@ -1,5 +1,6 @@
 """Architecture configuration for the assigned model pool (a copy of the JAX
-package's ``ArchConfig``, so one config describes both)."""
+package's ``ArchConfig``, so one config describes both), and
+``PortArchConfig`` for the architectures only the port describes."""
 
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ class ArchConfig:
     causal: bool = True
     rope_theta: float = 1e6
 
-    # MLA (DeepSeek-V3)
+    # MLA (DeepSeek-V3; DeepSeek-V2-Lite has no query latent: q_lora_rank 0
+    # gives one query projection ``w_q``)
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
     qk_rope_dim: int = 64
@@ -105,6 +107,12 @@ class ArchConfig:
         return self.d_inner // self.ssm_headdim
 
     @property
+    def experts_held(self) -> int:
+        """Experts whose slabs this model holds (the router scores all
+        ``n_experts``)."""
+        return self.moe_held or self.n_experts
+
+    @property
     def uses_attention(self) -> bool:
         return self.attn_kind != "none"
 
@@ -147,9 +155,9 @@ class ArchConfig:
             kind = self.layer_kind(i)
             if kind == "attn":
                 if self.attn_kind == "mla":
-                    q = d * self.q_lora_rank + self.q_lora_rank * self.n_heads * (
-                        self.qk_nope_dim + self.qk_rope_dim
-                    )
+                    q_width = self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                    q = (d * self.q_lora_rank + self.q_lora_rank * q_width if self.q_lora_rank
+                         else d * q_width)
                     kv = d * (self.kv_lora_rank + self.qk_rope_dim)
                     kv += self.kv_lora_rank * self.n_heads * (
                         self.qk_nope_dim + self.v_head_dim
@@ -170,7 +178,7 @@ class ArchConfig:
             if self.layer_is_moe(i):
                 e_ff = self.moe_d_ff or self.d_ff
                 per_expert = (3 if self.gated_mlp else 2) * d * e_ff
-                total += self.n_experts * per_expert + d * self.n_experts  # router
+                total += self.experts_held * per_expert + d * self.n_experts  # router
                 total += self.n_shared_experts * per_expert
                 if self.dense_residual:
                     total += (3 if self.gated_mlp else 2) * d * self.d_ff
@@ -190,5 +198,39 @@ class ArchConfig:
         e_ff = self.moe_d_ff or self.d_ff
         per_expert = (3 if self.gated_mlp else 2) * d * e_ff
         moe_layers = sum(self.layer_is_moe(i) for i in range(self.n_layers))
-        inactive = moe_layers * (self.n_experts - self.top_k) * per_expert
+        # Of the experts held, a token reaches top_k / n_experts on average.
+        inactive = moe_layers * per_expert * self.experts_held * (self.n_experts - self.top_k) // self.n_experts
         return total - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An architecture the JAX package does not describe
+    (``configs.PORT_ARCH_IDS``): :class:`ArchConfig` with the port's own
+    settings as fields."""
+
+    # MLA's rotary: "halves" rotates the two halves of the rope dims;
+    # "pairs" first reads each rope vector as (rope/2, 2) and transposes it,
+    # as DeepSeek-V2's published code reads its weights.
+    rope_pairing: Literal["halves", "pairs"] = "halves"
+    # YaRN on MLA's rope dims (DeepSeek-V2's ``rope_scaling``, with its
+    # original context and ramp, ``layers.yarn_frequencies``); factor 0 = off.
+    # mscale_all_dim gives the softmax scale's temperature (0 = none).
+    yarn_factor: float = 0.0
+    yarn_mscale_all_dim: float = 0.0
+    # "capacity" drops the pairs past capacity_factor (GShard, the JAX
+    # package's); "dropless" computes every pair routed to an expert held
+    # here: experts [moe_held_start, moe_held_start + moe_held) of the
+    # router's n_experts (moe_held 0 = all of them).
+    moe_dispatch: Literal["capacity", "dropless"] = "capacity"
+    moe_held: int = 0
+    moe_held_start: int = 0
+    moe_renormalize: bool = True  # the top-k weights renormalised to sum 1
+
+
+# ArchConfig carries the port's own settings at their defaults as class
+# attributes, not fields, so that it stays the JAX package's field for field.
+for _field in dataclasses.fields(PortArchConfig):
+    if _field.name not in ArchConfig.__dataclass_fields__:
+        setattr(ArchConfig, _field.name, _field.default)
+del _field

@@ -74,11 +74,49 @@ def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta**exponent)  # (d_head/2,)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention-temperature factor: 0.1·m·ln(s) + 1 (1 for s ≤ 1)."""
+    return 0.1 * mscale * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+
+# DeepSeek-V2's ``rope_scaling``: the context its rotary was trained at, and
+# the turns over that context that bound YaRN's ramp.
+YARN_ORIGINAL_MAX_POS = 4096
+YARN_BETA_FAST = 32.0
+YARN_BETA_SLOW = 1.0
+
+
+def yarn_frequencies(d_head: int, theta: float, factor: float, device=None) -> torch.Tensor:
+    """DeepSeek-V2's YaRN inverse frequencies (``DeepseekV2YarnRotaryEmbedding``):
+    f_i / factor · (1 − m_i) + f_i · m_i, where m_i falls linearly from 1 to 0
+    across the correction range of dims that turn ``YARN_BETA_FAST`` to
+    ``YARN_BETA_SLOW`` times over ``YARN_ORIGINAL_MAX_POS`` positions."""
+    def dim_of(turns: float) -> float:
+        return d_head * math.log(YARN_ORIGINAL_MAX_POS / (turns * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(dim_of(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(dim_of(YARN_BETA_SLOW)), d_head - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(d_head // 2, dtype=torch.float32, device=device) - low) / (high - low)).clamp(0, 1)
+    extra = rope_frequencies(d_head, theta, device)
+    keep = 1.0 - ramp
+    return extra / factor * (1 - keep) + extra * keep
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, freqs: torch.Tensor | None = None,
+               pairs: bool = False) -> torch.Tensor:
     """x: (..., seq, n_heads, d_head); positions: (..., seq).  Rotates the two
-    halves of the head dim (not interleaved pairs)."""
+    halves of the head dim (not interleaved pairs).  ``freqs`` replaces the
+    plain inverse frequencies (YaRN's), and ``pairs`` first reads the head
+    dim as (d/2, 2) and transposes it, as DeepSeek-V2 does: the output stays
+    in that order, which is the same for queries and keys and so leaves
+    their products as published."""
     d_head = x.shape[-1]
-    freqs = rope_frequencies(d_head, theta, x.device)
+    if pairs:
+        x = x.unflatten(-1, (d_head // 2, 2)).transpose(-1, -2).flatten(-2)
+    if freqs is None:
+        freqs = rope_frequencies(d_head, theta, x.device)
     angles = positions[..., :, None].float() * freqs  # (..., seq, d/2)
     cos = torch.cos(angles)[..., :, None, :]  # (..., seq, 1, d/2)
     sin = torch.sin(angles)[..., :, None, :]
