@@ -206,8 +206,8 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                ``decode_step``s (prefill ms, decode ms a step, tokens/s,
                peak memory, the MoE's dropped pairs in the prefill; Jamba's
                prefill launches K4 and K7 once each, decode nothing;
-               DeepSeek-V3 launches no kernel: MLA and the MoE are plain, as
-               in JAX); the mixer rails (layer 0's mixer, and Jamba's
+               DeepSeek-V3's serving launches no kernel: MLA with a cache and
+               the MoE are plain, as in JAX); the mixer rails (layer 0's mixer, and Jamba's
                attention layer, on their real inputs: the prefill of the
                run's prompts and 4 cached one-token steps against one
                cache-free call, within 2e-2 of the output's scale, which
@@ -218,7 +218,8 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                of their scale, no pair dropped); one ``loss_sums`` with its
                gradients under ``remat="full"`` on 1 (DeepSeek-V3) or 2
                (Jamba) packed rows of 4096 in 256-2048-token segments
-               (loss, grad norm, ms, peak; Jamba K4 2, K5 1, K6 1, K7 2, and
+               (loss, grad norm, ms, peak; DeepSeek-V3 the MLA kernels, 2
+               forwards, a dQ and a dK/dV pass a layer; Jamba K4 2, K5 1, K6 1, K7 2, and
                its loss and every gradient on the dense grid bitwise equal
                to the pruned grid's); then K1-K6 held at Jamba's loss
                segments and prefill rows with its 64/8 heads, both dtypes
@@ -291,7 +292,20 @@ source, in parallel; the tensor-core kernels must show 0 spill bytes in
                a weight once), the plain version and, as a yardstick the port
                never calls, ``clip_grad_norm_(foreach=True)`` with
                ``torch.optim.AdamW(fused=True)`` over the same leaves;
-20. kernels  — one JSON line with every ported kernel, and the AdamW kernel.
+20. mla      — the MLA kernels (``kernels/mla_attention.py``, no TPU kernel:
+               the JAX package computes MLA with XLA einsums) at the
+               DeepSeek-V2-Lite cell's shape (MLA_SHAPE: 8 packed rows of
+               3072 slots of UltraChat-like samples, 16 heads, qk 192 over v
+               128, bf16): held against the plain version (out and the
+               gradients at 2e-2 of 1 + |plain|, lse at 2e-5), then the
+               forward and the backward timed beside their bounds (2 (qk +
+               v), 2 (2 qk + v) and 4 (qk + v) FLOPs per visible pair and
+               head; every tensor moved once), each kernel's device time
+               under ``torch.profiler``, the liveness tables' build, the plain
+               version, the model's plain blockwise path, and, as a yardstick
+               the port never calls, SDPA with the same boolean mask;
+21. kernels  — one JSON line with every ported kernel, the AdamW kernel and
+               the MLA kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed check raises, so the script exits non-zero and prints no result.  It
@@ -373,6 +387,12 @@ ADAMW_REPLACES = ("none: src/repro/train/optimizer.py is plain jnp, which XLA fu
                   "eager PyTorch launches each op as a kernel")
 # its launches in one step of Qwen3-0.6B's 311 leaves (four groups of at most 80)
 ADAMW_STEP_LAUNCHES = {"adamw_sqnorm": 4, "adamw_finish": 1, "adamw_update": 4}
+# The MLA kernels, which replace no TPU kernel, at the DeepSeek-V2-Lite cell's
+# shape: rows, slots a row, heads.
+MLA = "src/repro_torch/kernels/csrc/mla_attention.cu"
+MLA_REPLACES = ("none: src/repro/models/attention.py mla_attention is XLA einsums; the port's plain "
+                "path was fp32 blockwise einsums over whole rows")
+MLA_SHAPE = (8, 3072, 16)
 SSM_ROWS, SSM_PROMPT, SSM_DECODE = 8, 2048, 32  # the ssm phase's prefill and decode
 SSM_RAIL = (2, 512, 384)  # fp32 rail: rows, tokens, prefill length before teacher forcing
 # The SSM training run: the train launcher's flags (steps of 2 x 3072 to
@@ -451,7 +471,8 @@ MLA_HYBRID_ROWS, MLA_HYBRID_DECODE, MLA_HYBRID_LEN, RAIL_STEPS = 8, 32, 4096, 4
 JAMBA_LOSS_EXACT_TOL = 4e-5
 MLA_HYBRID_NOTE = ("per run of the mla_hybrid phase: each model's serving (LM.prefill of 8 prompts and 32 "
                    "decode steps) and one loss with its gradients on the pruned grid (remat runs the "
-                   "forward twice); DeepSeek-V3 runs no kernel (MLA and the MoE are plain, as in JAX)")
+                   "forward twice); DeepSeek-V3's loss runs the MLA kernels (kernels/mla_attention: 2 "
+                   "forwards, a dQ and a dK/dV pass a layer), its serving and its MoE are plain, as in JAX")
 # The flash kernels' times at the added architectures' head layouts, each on
 # two packed rows of 4096 (label, widths).
 ARCH_TIME_SHAPES = (
@@ -2974,19 +2995,22 @@ def phase_archs(rng) -> dict:
 
 
 def all_launches() -> dict:
-    """The launch counts of K1-K6 and K7, by kernel name."""
+    """The launch counts of K1-K6, K7 and the MLA kernels, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_attention as mk
     from repro_torch.kernels import ssd_scan as ssd
 
-    return {**fa.LAUNCHES, **ssd.LAUNCHES}
+    return {**fa.LAUNCHES, **ssd.LAUNCHES, **mk.LAUNCHES}
 
 
 def reset_all_launches() -> None:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_attention as mk
     from repro_torch.kernels import ssd_scan as ssd
 
     fa.reset_launches()
     ssd.reset_launches()
+    mk.reset_launches()
 
 
 @contextlib.contextmanager
@@ -3230,10 +3254,11 @@ def mla_hybrid_loss(model, params, rows: int, rng) -> dict:
     gnorm = global_norm(grads).item()
     check(math.isfinite(loss.item()) and math.isfinite(gnorm), f"{cfg.name}: loss {loss} grad norm {gnorm}")
     n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers)) if gqa else 0
+    n_mla = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers)) * (cfg.attn_kind == "mla")
     n_ssm = sum(cfg.layer_kind(l) == "ssm" for l in range(cfg.n_layers))
     want = {**dict.fromkeys(launches, 0), "segment_flash_attention_pruned": 2 * n_attn,
             "segment_flash_attention_bwd_pruned_dq": n_attn, "segment_flash_attention_bwd_pruned_dkv": n_attn,
-            "ssd_scan": 2 * n_ssm}
+            "ssd_scan": 2 * n_ssm, "mla_fwd": 2 * n_mla, "mla_bwd_dq": n_mla, "mla_bwd_dkv": n_mla}
     check(launches == want, f"{cfg.name} loss launches {launches} != {want}")
     bitwise = ""
     if gqa:
@@ -4156,6 +4181,154 @@ def phase_times_adamw() -> dict:
                 leaves=len(shapes), weights=n, norm_rel_err=abs(norm - own) / own)
 
 
+def ultrachat_segments(rng, rows: int, cap: int):
+    """(rows, cap) int32 segment ids of UltraChat-like samples (lognormal,
+    mean 1196, CV 0.48, 16-4471 tokens, as the DeepSeek-V2-Lite cell's
+    traffic) packed first-fit into rows of ``cap`` slots, padding after."""
+    import numpy as np
+
+    sigma = math.sqrt(math.log(1 + 0.48**2))
+    seg = np.zeros((rows, cap), np.int32)
+    for r in range(rows):
+        at, sid = 0, 1
+        while True:
+            n = int(np.clip(rng.lognormal(math.log(1196) - sigma**2 / 2, sigma), 16, 4471))
+            if at + n > cap:
+                break
+            seg[r, at:at + n], at, sid = sid, at + n, sid + 1
+    return seg
+
+
+def mla_work(seg, heads: int) -> dict:
+    """(FLOPs, bytes) of the MLA forward, dQ and dK/dV passes at segment ids
+    ``seg`` (a (B, S) array): 2 (qk + v), 2 (2 qk + v) and 4 (qk + v) FLOPs
+    per visible pair and head, qk 192 and v 128; q, k_nope, k_rope, v, out,
+    dout, the gradients, the fp32 row statistics and the segment ids moved
+    once.  The metric ``mla_roofline`` (odb_bench/metrics) counts the same."""
+    import numpy as np
+
+    qk, vd, rope = 192, 128, 64
+    b, s = seg.shape
+    lengths = [int(n) for row in seg for n in np.unique(row[row > 0], return_counts=True)[1]]
+    p = heads * sum(n * (n + 1) // 2 for n in lengths)
+    t = b * s
+    q, kn, kr, v = 2 * t * heads * qk, 2 * t * heads * (qk - rope), 2 * t * rope, 2 * t * heads * vd
+    stat, ids = 4 * t * heads, 4 * t
+    return {"fwd": (2.0 * (qk + vd) * p, q + kn + kr + v + v + stat + ids),
+            "dq": (2.0 * (2 * qk + vd) * p, q + kn + kr + v + v + 2 * stat + ids + q),
+            "dkv": (4.0 * (qk + vd) * p, q + kn + kr + v + v + 2 * stat + ids + kn + kr + v),
+            "pairs": p}
+
+
+def phase_times_mla(rng) -> dict:
+    """The MLA kernels at the DeepSeek-V2-Lite cell's shape (MLA_SHAPE, UltraChat
+    segments, 16 heads, qk 192 over v 128, bf16, YaRN's scale): held against
+    the plain version (out and the gradients at 2e-2 of 1 + |plain|, lse at
+    2e-5), then the forward and the backward (dQ and dK/dV, with delta and the
+    heads' rope sum) timed beside their bounds, the plain version, the
+    model's plain blockwise path (``_mla_block_sdpa``, forward, and forward
+    with backward) and, as a yardstick the port never calls, SDPA with the
+    same boolean mask over the rope key repeated per head (forward)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mla_attention as mk
+    from repro_torch.kernels.liveness import build_liveness_tables
+    from repro_torch.models.attention import _mla_block_sdpa
+    from repro_torch.models.layers import yarn_mscale
+
+    rows, cap, heads = MLA_SHAPE
+    scale = 192**-0.5 * yarn_mscale(40.0, 0.707) ** 2
+    seg_np = ultrachat_segments(rng, rows, cap)
+    seg = torch.from_numpy(seg_np).cuda()
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().bfloat16()
+
+    q, k_nope, k_rope = draw(rows, cap, heads, 192), draw(rows, cap, heads, 128), draw(rows, cap, 64)
+    v, do = draw(rows, cap, heads, 128), draw(rows, cap, heads, 128)
+    block = mk.block_for(cap)
+    tables = build_liveness_tables(seg, block_q=block, block_kv=block)
+    mk.reset_launches()
+    out, lse = mk.mla_attention_fwd(q, k_nope, k_rope, v, seg, scale=scale, tables=tables)
+    grads = mk.mla_attention_bwd(q, k_nope, k_rope, v, seg, out, lse, do, scale=scale, tables=tables)
+    p_out, p_lse = mk.mla_attention_ref(q, k_nope, k_rope, v, seg, True, scale)
+    plain = mk.mla_attention_bwd_ref(q, k_nope, k_rope, v, seg, out, lse, do, True, scale)
+    real = seg > 0
+    errs = {}
+    check(torch.allclose(lse[real], p_lse[real], atol=TOL["float32"], rtol=TOL["float32"]),
+          f"mla lse vs plain: err {(lse[real] - p_lse[real]).abs().max().item()}")
+    for name, ours, ref in zip(("out", "dq", "dk_nope", "dk_rope", "dv"), (out, *grads), (p_out, *plain)):
+        a, b = ours[real].float(), ref[real].float()
+        errs[name] = (a - b).abs().max().item()
+        check(torch.allclose(a, b, atol=TOL["bfloat16"], rtol=TOL["bfloat16"]),
+              f"mla {name} vs plain at {MLA_SHAPE}: err {errs[name]}")
+    check(mk.LAUNCHES == {"mla_fwd": 1, "mla_bwd_dq": 1, "mla_bwd_dkv": 1}, f"mla launches {mk.LAUNCHES}")
+    del p_out, p_lse, plain
+    torch.cuda.empty_cache()
+
+    fwd = lambda: mk.mla_attention_fwd(q, k_nope, k_rope, v, seg, scale=scale, tables=tables)  # noqa: E731
+    bwd = lambda: mk.mla_attention_bwd(q, k_nope, k_rope, v, seg, out, lse, do, scale=scale,  # noqa: E731
+                                       tables=tables)
+    fwd_ms, bwd_ms = cuda_ms(fwd, iters=20), cuda_ms(bwd, iters=20)
+    _, fwd_kernels = device_launches(fwd)
+    per_call, kernels = device_launches(bwd)
+    # each kernel's mean device ms a launch, by the profiler
+    names = {"fwd": "mla_fwd_kernel", "dq": "mla_bwd_dq_kernel", "dkv": "mla_bwd_dkv_kernel"}
+    kernel_ms = {kind: ms for name, (_, ms) in {**fwd_kernels, **kernels}.items()
+                 for kind, kernel in names.items() if kernel in name}
+    tables_ms = cuda_ms(lambda: build_liveness_tables(seg, block_q=block, block_kv=block), iters=20)
+    plain_ms = cuda_ms(lambda: mk.mla_attention_ref(q, k_nope, k_rope, v, seg, True, scale), iters=2, warmup=1)
+    pos = np.zeros_like(seg_np)  # within-segment positions, as the plain path masks causally
+    for r, row in enumerate(seg_np):
+        starts = [0, *(np.flatnonzero(np.diff(row)) + 1), cap]
+        for a, b in zip(starts[:-1], starts[1:]):
+            pos[r, a:b] = np.arange(b - a)
+    pos = torch.from_numpy(pos).cuda()
+    blockwise = lambda: _mla_block_sdpa(q[..., :128], q[..., 128:], k_nope, k_rope, v, pos, pos,  # noqa: E731
+                                        seg, seg, None, True, scale)
+    blockwise_ms = cuda_ms(blockwise, iters=3, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k_nope, k_rope, v)]
+
+    def blockwise_step():
+        o = _mla_block_sdpa(leaves[0][..., :128], leaves[0][..., 128:], *leaves[1:], pos, pos, seg, seg,
+                            None, True, scale)
+        torch.autograd.grad(o, leaves, do)
+
+    blockwise_step_ms = cuda_ms(blockwise_step, iters=3, warmup=1)
+    del leaves
+    torch.cuda.empty_cache()
+    k_full = torch.cat([k_nope, k_rope[:, :, None].expand(-1, -1, heads, -1)], dim=-1)
+    posc = torch.arange(cap, device="cuda")
+    mask = ((posc[None, :] <= posc[:, None])[None] & (seg[:, :, None] == seg[:, None, :])
+            & (seg[:, None, :] > 0))[:, None]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k_full, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale),
+                         iters=10)
+    del qt, kt, vt, mask, k_full
+    torch.cuda.empty_cache()
+    work = mla_work(seg_np, heads)
+    bound = {k: 1e3 * max(work[k][0] / PEAK_FLOPS, work[k][1] / PEAK_BYTES) for k in ("fwd", "dq", "dkv")}
+    by = {k: "operations" if work[k][0] / PEAK_FLOPS > work[k][1] / PEAK_BYTES else "bytes"
+          for k in ("fwd", "dq", "dkv")}
+    bwd_bound = bound["dq"] + bound["dkv"]
+    print(f"[times] mla {MLA_SHAPE} (rows, slots, heads) qk 192 v 128 bf16, {work['pairs']} visible pairs x "
+          f"heads, block {block}: fwd kernel_ms {fwd_ms:.4f} bound_ms {bound['fwd']:.4f} ({by['fwd']}) share "
+          f"{bound['fwd'] / fwd_ms:.4f}; bwd (dq + dkv + delta + rope sum) kernel_ms {bwd_ms:.4f} bound_ms "
+          f"{bwd_bound:.4f} share {bwd_bound / bwd_ms:.4f}; tables_ms {tables_ms:.4f}; plain_ms (fwd) "
+          f"{plain_ms:.4f}; blockwise_ms (the plain path: fwd {blockwise_ms:.4f}, fwd + bwd "
+          f"{blockwise_step_ms:.4f}); library_ms {library_ms:.4f} (SDPA fwd, boolean mask, rope key repeated); "
+          f"bwd device launches {per_call} {sorted(kernels)}; by the profiler, each kernel's ms (share of its "
+          f"bound): " + ", ".join(f"{k} {ms:.4f} ({bound[k] / ms:.4f})" for k, ms in kernel_ms.items())
+          + f"; max_abs_err vs plain {errs}")
+    return dict(ms=fwd_ms, bwd_ms=bwd_ms, bound_ms=bound["fwd"], bwd_bound_ms=bwd_bound, bound_by=by["fwd"],
+                plain_ms=plain_ms, blockwise_ms=blockwise_ms, blockwise_step_ms=blockwise_step_ms,
+                library_ms=library_ms, tables_ms=tables_ms, max_abs_err=errs, pairs=work["pairs"],
+                kernel_ms=kernel_ms, kernel_bound_ms=bound,
+                shape=list(MLA_SHAPE), block=block)
+
+
 def main() -> None:
     import torch
 
@@ -4205,6 +4378,7 @@ def main() -> None:
                   for i, (label, widths) in enumerate(ARCH_TIME_SHAPES)]
     ssd_times = timed(phase_times_ssd, np.random.default_rng(6))
     adamw_times = timed(phase_times_adamw)
+    mla_times = timed(phase_times_mla, np.random.default_rng(20))
     for held in [*(rec["max_abs_err"] for rec in archs.values()), mla_hybrid["max_abs_err"], ep["max_abs_err"],
                  times["max_abs_err"],
                  *(at["max_abs_err"] for at in arch_times)]:
@@ -4306,6 +4480,18 @@ def main() -> None:
         bound_ms=adamw_times["bound_ms"], bound_by="bytes", library_ms=adamw_times["library_ms"],
         library_step_ms=adamw_times["library_step_ms"], norm_rel_err=adamw_times["norm_rel_err"],
         shape=[adamw_times["leaves"], adamw_times["weights"]], dtype="bfloat16 weights, float32 moments",
+    ))
+    kernels.append(dict(
+        name="mla_attention", route="cuda", source=MLA, replaces=MLA_REPLACES,
+        launches_mla_hybrid=mla_hybrid["launches"]["deepseek_v3_671b_loss"],
+        launches_mla_hybrid_note=MLA_HYBRID_NOTE,
+        ms=mla_times["ms"], bwd_ms=mla_times["bwd_ms"], kernel_ms=mla_times["kernel_ms"],
+        bound_ms=mla_times["bound_ms"], bwd_bound_ms=mla_times["bwd_bound_ms"],
+        kernel_bound_ms=mla_times["kernel_bound_ms"], bound_by=mla_times["bound_by"],
+        plain_ms=mla_times["plain_ms"], blockwise_ms=mla_times["blockwise_ms"],
+        blockwise_step_ms=mla_times["blockwise_step_ms"], library_ms=mla_times["library_ms"],
+        tables_ms=mla_times["tables_ms"], max_abs_err=mla_times["max_abs_err"],
+        shape=mla_times["shape"], dtype="bfloat16",
     ))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

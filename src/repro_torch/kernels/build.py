@@ -22,7 +22,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_fwd", "flash_bwd", "ssd_scan", "adamw")
+SOURCES = ("flash_fwd", "flash_bwd", "ssd_scan", "adamw", "mla_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -68,6 +68,17 @@ SIGNATURES = {
         # (p, g, m dtypes, device, host table, leaves, blocks, chunk, scalars, host constants, stream)
         "adamw_update": ([_c_int] * 4 + [_ptr, _c_int, _c_int, _c_int64, _ptr, _ptr, _ptr], _c_int),
         "adamw_error_string": ([_c_int], ctypes.c_char_p),
+    },
+    "mla_attention": {
+        # (device, q, k_nope, k_rope, v, seg, row tables, out, lse, B, S, H, bq, bkv, causal, scale, stream)
+        "mla_fwd": ([_c_int] + [_ptr] * 9 + [_c_int] * 6 + [_c_float, _ptr], _c_int),
+        # (device, q, k_nope, k_rope, v, seg, row tables, dout, lse, delta, dq, B, S, H, bq, bkv, causal,
+        #  scale, stream)
+        "mla_bwd_dq": ([_c_int] + [_ptr] * 11 + [_c_int] * 6 + [_c_float, _ptr], _c_int),
+        # (device, q, k_nope, k_rope, v, seg, column tables, dout, lse, delta, dk_nope, dk_rope per head,
+        #  dv, B, S, H, bq, bkv, causal, scale, stream)
+        "mla_bwd_dkv": ([_c_int] + [_ptr] * 13 + [_c_int] * 6 + [_c_float, _ptr], _c_int),
+        "mla_error_string": ([_c_int], ctypes.c_char_p),
     },
 }
 

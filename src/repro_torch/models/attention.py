@@ -10,11 +10,15 @@ them from ``ArchConfig.attn_impl``; "auto" takes the kernel exactly when the
 batch is packed and the tensors lie on a CUDA device.  Decode always takes
 the plain path over the cache.
 
-MLA always takes the plain path, as in the JAX package, which computes it
-with XLA einsums and no kernel: training and prefill in the direct form
-(the latents expanded to per-head keys and values), decode in the absorbed
-form against the latent cache.  Its prefill fills the cache of one request
-per row from index 0; it has no slot-scatter map.
+MLA computes training and prefill in the direct form (the latents expanded
+to per-head keys and values) and decode in the absorbed form against the
+latent cache.  Its cache-free packed attention on a CUDA device, under
+``attn_impl="auto"``, goes through the MLA kernels of
+``repro_torch.kernels.mla_attention`` (:func:`use_mla_kernel`); everything
+else (``"xla"``, CPU tensors, the prefill that fills a cache, decode) takes
+the plain path, as in the JAX package, which computes MLA with XLA einsums
+and no kernel.  Its prefill fills the cache of one request per row from
+index 0; it has no slot-scatter map.
 
 Masking contract (shared with the kernels): attention is allowed iff
 ``segment_ids`` match (padding carries segment 0) AND (causal ⇒ key position
@@ -140,6 +144,14 @@ def use_flash_attention(cfg, segments, cache) -> bool:
     if impl == "auto":
         return segments is not None and segments.device.type == "cuda"
     return False
+
+
+def use_mla_kernel(cfg, segments, cache) -> bool:
+    """Route this MLA call through the MLA kernels?  Exactly the cache-free
+    packed call on a CUDA device under ``attn_impl="auto"``; "xla" keeps
+    the plain path ("flash" is refused for MLA when the model is built)."""
+    return (cache is None and cfg.attn_impl == "auto" and segments is not None
+            and segments.device.type == "cuda")
 
 
 def resolve_flash_grid(cfg, segments) -> str:
@@ -426,14 +438,21 @@ def mla_attention(
         start = int(cache_index)
         cache.ckv[:, start:start + s] = ckv.to(cache.ckv.dtype)
         cache.k_rope[:, start:start + s] = k_rope.to(cache.k_rope.dtype)
-    out = _mla_block_sdpa(q_nope, q_rope, k_nope, k_rope, v, positions, positions, segments, segments,
-                          None, cfg.causal, scale)
+    if use_mla_kernel(cfg, segments, cache):
+        from repro_torch.kernels.mla_attention import mla_attention as mla_kernel
+
+        # The kernels mask causally by absolute row; with the segment compare
+        # that is the plain path's within-segment objective.
+        out = mla_kernel(torch.cat([q_nope, q_rope], dim=-1), k_nope, k_rope, v, segments, cfg.causal, scale)
+    else:
+        out = _mla_block_sdpa(q_nope, q_rope, k_nope, k_rope, v, positions, positions, segments, segments,
+                              None, cfg.causal, scale)
     return out.reshape(b, s, h * vdim) @ params["wo"], cache
 
 
 def apply_attention(params, x, cfg, positions, segments=None, cache=None, cache_index=None,
                     mesh=None, dest_slot=None):
-    """The attention mixer of one layer: MLA on its plain path, else GQA.
+    """The attention mixer of one layer: MLA, else GQA.
     ``mesh`` is taken as in the JAX package, where it only places a GSPMD
     constraint on the heads; an eager program has no such placement, so
     here it changes nothing (``launch/perf.py`` records the same)."""

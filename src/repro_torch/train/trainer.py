@@ -72,12 +72,18 @@ def resolve_attn_impl(cfg, *, packed: bool, device: torch.device) -> str:
     """Pin ``attn_impl="auto"`` to a concrete route for one training run:
     the flash kernels exactly when the layout packs segments into rows, the
     attention layout is GQA and the tensors lie on a CUDA device; the plain
-    blockwise path otherwise.  An explicit choice is kept."""
+    blockwise path otherwise.  MLA has one kernel route, which it takes under
+    "auto" (``models/attention.use_mla_kernel``), so there "auto" stays
+    exactly when the layout is packed and the device CUDA.  An explicit
+    choice is kept."""
     if cfg.attn_impl != "auto":
         return cfg.attn_impl
+    kernel = packed and device.type == "cuda"
+    if cfg.attn_kind == "mla":
+        return "auto" if kernel else "xla"
     if cfg.attn_kind != "gqa":
         return "xla"
-    return "flash" if (packed and device.type == "cuda") else "xla"
+    return "flash" if kernel else "xla"
 
 
 def resolve_attn_grid(cfg, *, packed: bool, device: torch.device) -> str:

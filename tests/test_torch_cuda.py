@@ -262,6 +262,8 @@ def _moe_forward_on_card_matches_cpu(arch: str, dtype: str, monkeypatch) -> None
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    if cfg.attn_kind == "mla":  # MLA on its plain path on both sides: the smoke's widths are not the kernels'
+        cfg = dataclasses.replace(cfg, attn_impl="xla")
     # The kernels' plain versions on the CPU: padding rows attend to nothing
     # on both sides, so padding tokens route alike and take the same capacity.
     flash = "flash" if cfg.attn_kind == "gqa" else cfg.attn_impl
