@@ -1285,7 +1285,7 @@ def phase_times_training(rng, train_seg, heads=HEADS, kv_heads=KV_HEADS, d_head=
     lib = build.load_library("flash_bwd")
     dims = (rows, cap, heads, kv_heads, d_head, blk, blk, int(causal), 1.0 / d_head**0.5,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    ptr = fa._ptr
+    ptr = build.launch_arg
     head = (1, 0, ptr(q), ptr(k), ptr(v), ptr(seg))  # bf16 on device 0
     resid = (ptr(do), ptr(lse), ptr(delta))
     calls = {

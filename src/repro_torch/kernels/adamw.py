@@ -31,14 +31,13 @@ not move.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch.kernels.build import launch, load_library
 
 CHUNK = 1 << 16  # elements a block
 MAX_LEAVES = 80  # a launch's table: 48 B a leaf, under the 4 KB of kernel parameters
@@ -46,6 +45,7 @@ SCALARS = ("grad_norm", "lr", "scale", "bc1", "bc2")  # the finish kernel's outp
 
 # Kernel launches since the last reset_launches(), by kernel.
 LAUNCHES = {"adamw_sqnorm": 0, "adamw_finish": 0, "adamw_update": 0}
+_COUNTER = ("kernel_adamw_launches_total", "launches of the multi-tensor AdamW kernels")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -128,21 +128,11 @@ def _check(params, grads, m, v, step) -> None:
                              f"{tuple(vv.shape)}")
 
 
-def _launched(rc: int, lib, name: str) -> None:
-    """Raise on a failed launch of kernel ``name``, else count it."""
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} ({lib.adamw_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
-    obs.counter("kernel_adamw_launches_total", help="launches of the multi-tensor AdamW kernels").inc()
-
-
 def adamw_step(params: list, grads: list, m: list, v: list, step: torch.Tensor, cfg) -> dict:
     """One clipped AdamW step, in place on ``params``, ``m``, ``v`` and the
     int32 counter ``step``, for flat lists of leaves on one CUDA device;
     returns ``{"lr", "grad_norm"}`` as fp32 device scalars."""
     _check(params, grads, m, v, step)
-    from repro_torch.kernels.build import load_library
-
     lib = load_library("adamw")
     device = step.device
     keys = [(_DTYPES[p.dtype], _DTYPES[g.dtype], _DTYPES[mm.dtype]) for p, g, mm in zip(params, grads, m)]
@@ -156,18 +146,15 @@ def adamw_step(params: list, grads: list, m: list, v: list, step: torch.Tensor, 
     partials = torch.empty(blocks, dtype=torch.float32, device=device)
     scalars = torch.empty(len(SCALARS), dtype=torch.float32, device=device)
     finish, update = _hyper(cfg)
-    dev, stream = device.index or 0, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    dev = device.index or 0
+    kw = dict(device=device, launches=LAUNCHES, counter=_COUNTER)
     at = partials.data_ptr()
-    for launch, table in zip(launches, tables):
-        rc = lib.adamw_sqnorm(launch.key[1], dev, table.ctypes.data, len(launch.leaves), launch.blocks,
-                              CHUNK, at, stream)
-        _launched(rc, lib, "adamw_sqnorm")
-        at += 4 * launch.blocks
-    rc = lib.adamw_finish(dev, partials.data_ptr(), blocks, step.data_ptr(), scalars.data_ptr(),
-                          finish.ctypes.data, stream)
-    _launched(rc, lib, "adamw_finish")
-    for launch, table in zip(launches, tables):
-        rc = lib.adamw_update(*launch.key, dev, table.ctypes.data, len(launch.leaves), launch.blocks, CHUNK,
-                              scalars.data_ptr(), update.ctypes.data, stream)
-        _launched(rc, lib, "adamw_update")
+    for group, table in zip(launches, tables):
+        launch(lib, "adamw_sqnorm", group.key[1], dev, table.ctypes.data, len(group.leaves), group.blocks, CHUNK,
+               at, **kw)
+        at += 4 * group.blocks
+    launch(lib, "adamw_finish", dev, partials, blocks, step, scalars, finish.ctypes.data, **kw)
+    for group, table in zip(launches, tables):
+        launch(lib, "adamw_update", *group.key, dev, table.ctypes.data, len(group.leaves), group.blocks, CHUNK,
+               scalars, update.ctypes.data, **kw)
     return {"lr": scalars[SCALARS.index("lr")], "grad_norm": scalars[SCALARS.index("grad_norm")]}

@@ -7,7 +7,8 @@ a hash of the source, of every shared header (``csrc/*.cuh``, which a source
 includes) and of the flags, so an edited source or header is rebuilt and an
 unchanged one is loaded from the earlier build, with the ``nvcc``/``ptxas``
 log kept beside it.  Nothing is built at import: the first kernel launch (or
-:func:`build_all`) does it.
+:func:`build_all`) does it.  Every wrapper launches through :func:`launch`:
+pointers, the stream, the return code and the counts in one place.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ import pathlib
 import re
 import shutil
 import subprocess
+
+import torch
+
+from repro_torch import obs
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -158,5 +163,32 @@ def load_library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = restype
+        lib.error_string = next(getattr(lib, fn) for fn in SIGNATURES[name] if fn.endswith("_error_string"))
         _LOADED[name] = lib
     return lib
+
+
+def launch_arg(arg):
+    """A launch argument as the C interface takes it: a tensor as its device
+    address, None as a null pointer, anything else as it is."""
+    if isinstance(arg, torch.Tensor):
+        return ctypes.c_void_p(arg.data_ptr())
+    return ctypes.c_void_p(0) if arg is None else arg
+
+
+def launch(lib, fn: str, *args, device, launches: dict, name: str | None = None,
+           counter: tuple[str, str] | None = None) -> None:
+    """``lib.fn(*args, stream)`` on the current stream of the CUDA ``device``,
+    each argument through :func:`launch_arg`.  A non-zero return raises
+    ``"{name}: CUDA error {rc} ({msg})"`` with the library's message and
+    counts nothing; else ``launches[name]`` (``name`` defaults to ``fn``)
+    and, where ``counter`` gives one as ``(name, help)``, that registry
+    counter go up by one."""
+    name = name or fn
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    rc = getattr(lib, fn)(*map(launch_arg, args), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} ({lib.error_string(rc).decode()})")
+    launches[name] += 1
+    if counter is not None:
+        obs.counter(counter[0], help=counter[1]).inc()

@@ -42,10 +42,9 @@ JAX package's for every shape.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from repro_torch.kernels.build import launch, load_library
 from repro_torch.kernels.ref import (
     NEG_INF,
     segment_flash_attention_bwd_ref,
@@ -168,43 +167,11 @@ def _check_tc_cuda(direction: str, **tensors: torch.Tensor) -> None:
         raise ValueError(f"the bf16 {direction} kernels take 16-byte aligned {', '.join(rest)} and {last}")
 
 
-def _ptr(t: torch.Tensor | None):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
 def _outputs(q, return_lse):
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if return_lse else None
     return out, lse
-
-
-def _raise_on(rc: int, lib, name: str) -> None:
-    if rc != 0:
-        msg = lib.flash_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-
-
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _tables_for(segment_ids, tables, block_q: int, block_kv: int, causal: bool):
-    """The liveness tables of this grid, built from the segments when not
-    given, checked against the grid (B, S/block_q, S/block_kv)."""
-    if tables is None:
-        from repro_torch.kernels.liveness import build_liveness_tables
-
-        tables = build_liveness_tables(
-            segment_ids, block_q=block_q, block_kv=block_kv, causal=causal
-        )
-    b, s = segment_ids.shape
-    nq, nk = s // block_q, s // block_kv
-    shapes = ((b, nq, nk), (b, nq), (b, nk, nq), (b, nk))
-    for t, shape in zip(tables, shapes):
-        if t.shape != shape or t.dtype != torch.int32 or t.device != segment_ids.device:
-            raise ValueError("liveness tables do not match the kernel grid")
-    return tables
 
 
 def segment_flash_attention(
@@ -233,19 +200,11 @@ def segment_flash_attention(
         raise RuntimeError(f"no kernel for device {q.device}")
     _check_cuda(q, k, v, *([segment_ids] if segment_ids is not None else []))
     _check_tc_cuda("forward", q=q, k=k, v=v)
-    from repro_torch.kernels.build import load_library
-
-    lib = load_library("flash_fwd")
     out, lse = _outputs(q, return_lse)
     b, s, h, _ = q.shape
-    rc = lib.flash_fwd_dense(
-        _DTYPES[q.dtype], q.device.index or 0,
-        _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(out), _ptr(lse),
-        b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale,
-        _stream(q),
-    )
-    _raise_on(rc, lib, "segment_flash_attention")
-    LAUNCHES["segment_flash_attention"] += 1
+    launch(load_library("flash_fwd"), "flash_fwd_dense", _DTYPES[q.dtype], q.device.index or 0,
+           q, k, v, segment_ids, out, lse, b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale,
+           device=q.device, launches=LAUNCHES, name="segment_flash_attention")
     return (out, lse) if return_lse else out
 
 
@@ -277,24 +236,17 @@ def segment_flash_attention_pruned(
         return segment_flash_attention_ref(q, k, v, segment_ids, causal, scale, return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
-    tables = _tables_for(segment_ids, tables, block_q, block_kv, causal)
-    kv_idx, kv_count = tables.kv_idx, tables.kv_count
-    _check_cuda(q, k, v, segment_ids, kv_idx, kv_count)
-    _check_tc_cuda("forward", q=q, k=k, v=v)
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.liveness import liveness_tables
 
-    lib = load_library("flash_fwd")
+    tables = liveness_tables(segment_ids, block_q, block_kv, causal, tables)
+    _check_cuda(q, k, v, segment_ids)
+    _check_tc_cuda("forward", q=q, k=k, v=v)
     out, lse = _outputs(q, return_lse)
     b, s, h, _ = q.shape
-    rc = lib.flash_fwd_pruned(
-        _DTYPES[q.dtype], q.device.index or 0,
-        _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(kv_idx), _ptr(kv_count),
-        _ptr(out), _ptr(lse),
-        b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale,
-        _stream(q),
-    )
-    _raise_on(rc, lib, "segment_flash_attention_pruned")
-    LAUNCHES["segment_flash_attention_pruned"] += 1
+    launch(load_library("flash_fwd"), "flash_fwd_pruned", _DTYPES[q.dtype], q.device.index or 0,
+           q, k, v, segment_ids, tables.kv_idx, tables.kv_count, out, lse,
+           b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale,
+           device=q.device, launches=LAUNCHES, name="segment_flash_attention_pruned")
     return (out, lse) if return_lse else out
 
 
@@ -348,25 +300,14 @@ def segment_flash_attention_bwd(
     segs = [segment_ids] if segment_ids is not None else []
     _check_cuda(q, k, v, out, lse, do, *segs)
     _check_tc_cuda("backward", q=q, k=k, v=v, do=do)
-    from repro_torch.kernels.build import load_library
-
     lib = load_library("flash_bwd")
     delta, dq, dk, dv = _bwd_buffers(q, k, v, out, do)
     b, s, h, d = q.shape
-    dims = (b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale, _stream(q))
-    dev = (_DTYPES[q.dtype], q.device.index or 0)
-    rc = lib.flash_bwd_dq_dense(
-        *dev, _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(dq), *dims,
-    )
-    _raise_on(rc, lib, "segment_flash_attention_bwd (dq)")
-    LAUNCHES["segment_flash_attention_bwd_dq"] += 1
-    rc = lib.flash_bwd_dkv_dense(
-        *dev, _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(dk), _ptr(dv), *dims,
-    )
-    _raise_on(rc, lib, "segment_flash_attention_bwd (dk/dv)")
-    LAUNCHES["segment_flash_attention_bwd_dkv"] += 1
+    head = (_DTYPES[q.dtype], q.device.index or 0, q, k, v, segment_ids, do, lse, delta)
+    dims = (b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale)
+    kw = dict(device=q.device, launches=LAUNCHES)
+    launch(lib, "flash_bwd_dq_dense", *head, dq, *dims, name="segment_flash_attention_bwd_dq", **kw)
+    launch(lib, "flash_bwd_dkv_dense", *head, dk, dv, *dims, name="segment_flash_attention_bwd_dkv", **kw)
     return dq, dk, dv
 
 
@@ -394,28 +335,22 @@ def segment_flash_attention_bwd_pruned(
     scale = _bwd_setup(q, k, v, segment_ids, out, lse, do, block_q, block_kv, scale)
     if q.device.type == "cpu":
         return segment_flash_attention_bwd_ref(q, k, v, segment_ids, out, lse, do, causal, scale)
-    tables = _tables_for(segment_ids, tables, block_q, block_kv, causal)
-    _check_cuda(q, k, v, out, lse, do, segment_ids, *tables)
-    _check_tc_cuda("backward", q=q, k=k, v=v, do=do)
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.liveness import liveness_tables
 
+    tables = liveness_tables(segment_ids, block_q, block_kv, causal, tables)
+    _check_cuda(q, k, v, out, lse, do, segment_ids)
+    _check_tc_cuda("backward", q=q, k=k, v=v, do=do)
     lib = load_library("flash_bwd")
     delta, dq, dk, dv = _bwd_buffers(q, k, v, out, do)
     b, s, h, d = q.shape
-    dims = (b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale, _stream(q))
-    dev = (_DTYPES[q.dtype], q.device.index or 0)
-    rc = lib.flash_bwd_dq_pruned(
-        *dev, _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(tables.kv_idx),
-        _ptr(tables.kv_count), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), *dims,
-    )
-    _raise_on(rc, lib, "segment_flash_attention_bwd_pruned (dq)")
-    LAUNCHES["segment_flash_attention_bwd_pruned_dq"] += 1
-    rc = lib.flash_bwd_dkv_pruned(
-        *dev, _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(tables.q_idx),
-        _ptr(tables.q_count), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), *dims,
-    )
-    _raise_on(rc, lib, "segment_flash_attention_bwd_pruned (dk/dv)")
-    LAUNCHES["segment_flash_attention_bwd_pruned_dkv"] += 1
+    head = (_DTYPES[q.dtype], q.device.index or 0, q, k, v, segment_ids)
+    resid = (do, lse, delta)
+    dims = (b, s, h, k.shape[2], d, block_q, block_kv, int(causal), scale)
+    kw = dict(device=q.device, launches=LAUNCHES)
+    launch(lib, "flash_bwd_dq_pruned", *head, tables.kv_idx, tables.kv_count, *resid, dq, *dims,
+           name="segment_flash_attention_bwd_pruned_dq", **kw)
+    launch(lib, "flash_bwd_dkv_pruned", *head, tables.q_idx, tables.q_count, *resid, dk, dv, *dims,
+           name="segment_flash_attention_bwd_pruned_dkv", **kw)
     return dq, dk, dv
 
 

@@ -6,7 +6,8 @@ walks ``kv_idx[b, qb, :kv_count[b, qb]]`` in ascending order, which is the
 dense kernel's order, so the two are bit-exact.  The causal reach folds into
 the liveness, so causally dead tiles prune too.  The column tables (per
 (batch, kv-block): which q blocks attend into it) are for the kv-stationary
-backward of the training path.
+backward of the training path.  Both kernel families (K4–K6 and the MLA
+kernels) build and check their tables through :func:`liveness_tables`.
 
 Plain torch on the segments' device.  The index clamp past the live count
 (repeat the last live block) is kept so the tables equal the JAX package's
@@ -106,6 +107,24 @@ def build_liveness_tables(
     kv_idx, kv_count = compact_index(live)
     q_idx, q_count = compact_index(live.transpose(1, 2))
     return LivenessTables(kv_idx, kv_count, q_idx, q_count)
+
+
+def liveness_tables(segment_ids: torch.Tensor, block_q: int, block_kv: int, causal: bool,
+                    tables: LivenessTables | None = None) -> LivenessTables:
+    """The tables of one kernel grid: built from ``segment_ids`` when
+    ``tables`` is None, else ``tables`` checked against the grid
+    (B, S/block_q, S/block_kv): shapes, int32, the segments' device,
+    contiguous.  Every kernel over the tables (K4–K6 and the MLA kernels)
+    takes them through here."""
+    if tables is None:
+        return build_liveness_tables(segment_ids, block_q=block_q, block_kv=block_kv, causal=causal)
+    b, s = segment_ids.shape
+    nq, nk = s // block_q, s // block_kv
+    for t, shape in zip(tables, ((b, nq, nk), (b, nq), (b, nk, nq), (b, nk))):
+        if (t.shape != shape or t.dtype != torch.int32 or t.device != segment_ids.device
+                or not t.is_contiguous()):
+            raise ValueError("liveness tables do not match the kernel grid")
+    return tables
 
 
 def fetched_tile_counts(

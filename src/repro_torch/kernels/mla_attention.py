@@ -34,12 +34,11 @@ went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch import obs
+from repro_torch.kernels.build import launch, load_library
 from repro_torch.kernels.flash_attention import select_block
+from repro_torch.kernels.liveness import LivenessTables, liveness_tables
 from repro_torch.kernels.ref import NEG_INF
 
 NOPE, ROPE, V_DIM = 128, 64, 128  # the widths the kernels take
@@ -47,6 +46,7 @@ BLOCK = 128  # the largest block; block_for picks the divisor of S the tables us
 
 # Kernel launches since the last reset_launches(), by kernel.
 LAUNCHES = {"mla_fwd": 0, "mla_bwd_dq": 0, "mla_bwd_dkv": 0}
+_COUNTER = ("kernel_mla_launches_total", "launches of the MLA attention kernels")
 
 __all__ = [
     "LAUNCHES",
@@ -165,36 +165,11 @@ def mla_attention_bwd_ref(q, k_nope, k_rope, v, segment_ids, out, lse, do, causa
     return tuple(torch.stack(g).to(t.dtype) for g, t in zip(zip(*grads), (q, k_nope, k_rope, v)))
 
 
-def _launched(rc: int, lib, name: str) -> None:
-    """Raise on a failed launch of kernel ``name``, else count it."""
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} ({lib.mla_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
-    obs.counter("kernel_mla_launches_total", help="launches of the MLA attention kernels").inc()
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _launch_args(q, block: int, causal: bool, scale: float):
-    """The trailing (B, S, H, bq, bkv, causal, scale, stream) of every launch."""
+def _launch(fn: str, q, *args, block: int, causal: bool, scale: float) -> None:
+    """One launch of kernel ``fn``: (device, q, ``args``, B, S, H, bq, bkv, causal, scale, stream)."""
     b, s, h, _ = q.shape
-    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    return (b, s, h, block, block, int(causal), scale, stream)
-
-
-def _tables(segment_ids, block: int, causal: bool, tables):
-    from repro_torch.kernels.liveness import build_liveness_tables
-
-    if tables is None:
-        tables = build_liveness_tables(segment_ids, block_q=block, block_kv=block, causal=causal)
-    b, s = segment_ids.shape
-    n = s // block
-    for t, shape in zip(tables, ((b, n, n), (b, n), (b, n, n), (b, n))):
-        if t.shape != shape or t.dtype != torch.int32 or t.device != segment_ids.device or not t.is_contiguous():
-            raise ValueError("liveness tables do not match the kernel grid")
-    return tables
+    launch(load_library("mla_attention"), fn, q.device.index or 0, q, *args, b, s, h, block, block,
+           int(causal), scale, device=q.device, launches=LAUNCHES, counter=_COUNTER)
 
 
 def mla_attention_fwd(q, k_nope, k_rope, v, segment_ids, *, causal: bool = True, scale: float | None = None,
@@ -208,17 +183,12 @@ def mla_attention_fwd(q, k_nope, k_rope, v, segment_ids, *, causal: bool = True,
         return mla_attention_ref(q, k_nope, k_rope, v, segment_ids, causal, scale)
     check_kernel_inputs(q, k_nope, k_rope, v)
     block = block_for(q.shape[1])
-    tables = _tables(segment_ids, block, causal, tables)
-    from repro_torch.kernels.build import load_library
-
-    lib = load_library("mla_attention")
+    tables = liveness_tables(segment_ids, block, block, causal, tables)
     b, s, h, _ = q.shape
     out = torch.empty((b, s, h, V_DIM), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
-    rc = lib.mla_fwd(q.device.index or 0, _ptr(q), _ptr(k_nope), _ptr(k_rope), _ptr(v), _ptr(segment_ids),
-                     _ptr(tables.kv_idx), _ptr(tables.kv_count), _ptr(out), _ptr(lse),
-                     *_launch_args(q, block, causal, scale))
-    _launched(rc, lib, "mla_fwd")
+    _launch("mla_fwd", q, k_nope, k_rope, v, segment_ids, tables.kv_idx, tables.kv_count, out, lse,
+            block=block, causal=causal, scale=scale)
     return out, lse
 
 
@@ -244,23 +214,16 @@ def mla_attention_bwd(q, k_nope, k_rope, v, segment_ids, out, lse, do, *, causal
     if not lse.is_contiguous():
         raise ValueError("the MLA kernels take contiguous tensors")
     block = block_for(s)
-    tables = _tables(segment_ids, block, causal, tables)
-    from repro_torch.kernels.build import load_library
-
-    lib = load_library("mla_attention")
+    tables = liveness_tables(segment_ids, block, block, causal, tables)
     delta = (do.float() * out.float()).sum(dim=-1)
     dq = torch.empty_like(q)
     dk_nope, dv = torch.empty_like(k_nope), torch.empty_like(v)
     dk_rope_heads = torch.empty((b, s, h, ROPE), dtype=torch.float32, device=q.device)
-    dims = _launch_args(q, block, causal, scale)
-    dev = q.device.index or 0
-    inputs = (_ptr(q), _ptr(k_nope), _ptr(k_rope), _ptr(v), _ptr(segment_ids))
-    rc = lib.mla_bwd_dq(dev, *inputs, _ptr(tables.kv_idx), _ptr(tables.kv_count), _ptr(do), _ptr(lse),
-                        _ptr(delta), _ptr(dq), *dims)
-    _launched(rc, lib, "mla_bwd_dq")
-    rc = lib.mla_bwd_dkv(dev, *inputs, _ptr(tables.q_idx), _ptr(tables.q_count), _ptr(do), _ptr(lse),
-                         _ptr(delta), _ptr(dk_nope), _ptr(dk_rope_heads), _ptr(dv), *dims)
-    _launched(rc, lib, "mla_bwd_dkv")
+    inputs = (q, k_nope, k_rope, v, segment_ids)
+    grid = dict(block=block, causal=causal, scale=scale)
+    _launch("mla_bwd_dq", *inputs, tables.kv_idx, tables.kv_count, do, lse, delta, dq, **grid)
+    _launch("mla_bwd_dkv", *inputs, tables.q_idx, tables.q_count, do, lse, delta, dk_nope, dk_rope_heads, dv,
+            **grid)
     return dq, dk_nope, dk_rope_heads.sum(dim=2).to(k_rope.dtype), dv
 
 
@@ -271,22 +234,18 @@ class _MlaAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k_nope, k_rope, v, segment_ids, causal, scale):
-        tables = ()
-        if q.device.type == "cuda":
-            from repro_torch.kernels.liveness import build_liveness_tables
-
+        tables = None  # the plain version on CPU tensors needs none; without segments the wrapper raises
+        if q.device.type == "cuda" and segment_ids is not None:
             block = block_for(q.shape[1])
-            tables = build_liveness_tables(segment_ids, block_q=block, block_kv=block, causal=causal)
+            tables = liveness_tables(segment_ids, block, block, causal)
         out, lse = mla_attention_fwd(q, k_nope, k_rope, v, segment_ids, causal=causal, scale=scale,
-                                     tables=tables or None)
-        ctx.save_for_backward(q, k_nope, k_rope, v, segment_ids, out, lse, *tables)
+                                     tables=tables)
+        ctx.save_for_backward(q, k_nope, k_rope, v, segment_ids, out, lse, *(tables or ()))
         ctx.config = (causal, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        from repro_torch.kernels.liveness import LivenessTables
-
         q, k_nope, k_rope, v, segment_ids, out, lse, *tables = ctx.saved_tensors
         causal, scale = ctx.config
         grads = mla_attention_bwd(q, k_nope, k_rope, v, segment_ids, out, lse, do.contiguous(),

@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention import (
     segment_flash_attention_bwd_pruned,
     segment_flash_attention_pruned,
 )
-from repro_torch.kernels.liveness import LivenessTables, build_liveness_tables
+from repro_torch.kernels.liveness import LivenessTables, liveness_tables
 from repro_torch.kernels.ref import ssd_chunked_ref
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -44,38 +44,35 @@ GRID_MODES = ("dense", "pruned", "auto")
 
 
 def resolve_grid(grid: str | None, segment_ids) -> str:
-    """Resolve an ``attn_grid`` request to a concrete kernel variant."""
+    """Resolve an ``attn_grid`` request to a concrete kernel variant for one
+    call: ``models.attention.resolve_attn_grid``'s rule, read off the
+    presence and device of ``segment_ids``."""
+    from repro_torch.models.attention import resolve_attn_grid
+
     if grid is None:
         grid = "auto"
     if grid not in GRID_MODES:
         raise ValueError(f"grid must be one of {GRID_MODES}, got {grid!r}")
-    if segment_ids is None:
-        return "dense"
-    if grid == "auto":
-        return "pruned" if segment_ids.device.type == "cuda" else "dense"
-    return grid
+    packed = segment_ids is not None
+    return resolve_attn_grid(grid, packed=packed, device=segment_ids.device if packed else None)
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, block_q, block_kv, grid):
         kw = dict(causal=causal, block_q=block_q, block_kv=block_kv, return_lse=True)
-        tables = ()  # the CPU path takes the plain version, which needs none
+        tables = None  # the CPU path takes the plain version, which needs none
         if grid == "pruned":
             if q.device.type == "cuda":
-                tables = build_liveness_tables(
-                    segment_ids, block_q=block_q, block_kv=block_kv, causal=causal
-                )
+                tables = liveness_tables(segment_ids, block_q, block_kv, causal)
                 obs.counter(
                     "kernel_liveness_tables_built_total",
                     help="liveness tables built for the pruned flash kernels",
                 ).inc()
-            out, lse = segment_flash_attention_pruned(
-                q, k, v, segment_ids, tables=tables or None, **kw
-            )
+            out, lse = segment_flash_attention_pruned(q, k, v, segment_ids, tables=tables, **kw)
         else:
             out, lse = segment_flash_attention(q, k, v, segment_ids, **kw)
-        ctx.save_for_backward(q, k, v, segment_ids, out, lse, *tables)
+        ctx.save_for_backward(q, k, v, segment_ids, out, lse, *(tables or ()))
         ctx.config = (causal, block_q, block_kv, grid)
         return out
 

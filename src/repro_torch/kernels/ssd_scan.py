@@ -30,9 +30,9 @@ slices of its conv output as they are, and the kernel reads them in place.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from repro_torch.kernels.build import launch, load_library
 
 from repro_torch.kernels.ref import ssd_chunked_ref
 
@@ -110,10 +110,6 @@ def _scratch_shapes(bsz: int, s: int, h: int, p: int, n: int, chunk: int) -> dic
     return {"states": (bsz, nc, h, p, n), "decay": (bsz, nc, h), "scores": (bsz, nc, qp, qp)}
 
 
-def _ptr(t: torch.Tensor | None):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
 def ssd_scan(
     x: torch.Tensor,  # (B, S, H, P)
     adt: torch.Tensor,  # (B, S, H) fp32: a·dt (negative)
@@ -135,9 +131,6 @@ def ssd_scan(
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     _check_cuda(x, adt, dt, b_p, c_p, chunk, initial_state)
-    from repro_torch.kernels.build import load_library
-
-    lib = load_library("ssd_scan")
     bsz, s, h, p = x.shape
     n = b_p.shape[-1]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
@@ -149,16 +142,11 @@ def ssd_scan(
     if x.dtype == torch.bfloat16:
         scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
                    for name, shape in _scratch_shapes(bsz, s, h, p, n, chunk).items()}
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    rc = lib.ssd_scan_fwd(
-        _DTYPES[x.dtype], x.device.index or 0,
-        _ptr(x), _ptr(adt), _ptr(dt), _ptr(b_p), _ptr(c_p), _ptr(initial_state), _ptr(y),
-        _ptr(final), _ptr(scratch["states"]), _ptr(scratch["decay"]), _ptr(scratch["scores"]),
+    launch(
+        load_library("ssd_scan"), "ssd_scan_fwd", _DTYPES[x.dtype], x.device.index or 0,
+        x, adt, dt, b_p, c_p, initial_state, y, final, scratch["states"], scratch["decay"], scratch["scores"],
         bsz, s, h, p, n, chunk,
         x.stride(0), x.stride(1), b_p.stride(0), b_p.stride(1), c_p.stride(0), c_p.stride(1),
-        stream,
+        device=x.device, launches=LAUNCHES, name="ssd_scan",
     )
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan: CUDA error {rc} ({lib.ssd_error_string(rc).decode()})")
-    LAUNCHES["ssd_scan"] += 1
     return (y, final) if return_final_state else y

@@ -49,9 +49,7 @@ def _route_cell_model(model: LM, cell: ShapeCell) -> LM:
     pins = {}
     if cfg.attn_impl == "auto":
         packed = cell.layout == "packed" or cell.attn_impl == "flash"
-        impl = resolve_attn_impl(cfg, packed=packed, device=model.device)
-        if impl != cfg.attn_impl:
-            pins["attn_impl"] = impl
+        pins["attn_impl"] = resolve_attn_impl(cfg, packed=packed, device=model.device)
     # The cell's grid preference pins an unset attn_grid; kernels/ops still
     # degrades it to dense when segments are absent.
     if cfg.attn_grid == "auto" and cell.attn_grid != "auto":

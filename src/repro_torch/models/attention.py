@@ -1,24 +1,25 @@
 """Attention: GQA/MQA/MHA and MLA (DeepSeek-V3, DeepSeek-V2-Lite), their caches, segment masking.
 
 GQA has three paths: cache-free attention (training), the slot-scatter
-prefill (serving) and the per-slot decode over the cache.  The first two
-have two implementations behind one entry point: the plain blockwise masked
-attention below (``attn_impl="xla"``, the name kept from the JAX package)
-and the hand-written segment flash kernels in ``repro_torch.kernels``, whose
-autograd backward is a kernel too.  ``use_flash_attention`` routes between
-them from ``ArchConfig.attn_impl``; "auto" takes the kernel exactly when the
-batch is packed and the tensors lie on a CUDA device.  Decode always takes
-the plain path over the cache.
+prefill (serving) and the per-slot decode over the cache.  MLA computes
+training and prefill in the direct form (the latents expanded to per-head
+keys and values) and decode in the absorbed form against the latent cache;
+its prefill fills the cache of one request per row from index 0 and has no
+slot-scatter map.
 
-MLA computes training and prefill in the direct form (the latents expanded
-to per-head keys and values) and decode in the absorbed form against the
-latent cache.  Its cache-free packed attention on a CUDA device, under
-``attn_impl="auto"``, goes through the MLA kernels of
-``repro_torch.kernels.mla_attention`` (:func:`use_mla_kernel`); everything
-else (``"xla"``, CPU tensors, the prefill that fills a cache, decode) takes
-the plain path, as in the JAX package, which computes MLA with XLA einsums
-and no kernel.  Its prefill fills the cache of one request per row from
-index 0; it has no slot-scatter map.
+Cache-free attention of either kind has two implementations behind one
+rule: the plain blockwise masked attention below (``attn_impl="xla"``, the
+name kept from the JAX package) and the attention kind's hand-written
+kernels (``"flash"``): the segment flash kernels K1–K6 for GQA
+(``repro_torch.kernels.ops``), ``mla_fwd``/``mla_bwd_dq``/``mla_bwd_dkv``
+for MLA (``repro_torch.kernels.mla_attention``), whose autograd backwards
+are kernels too, and whose plain versions run on CPU tensors.
+:func:`resolve_attn_impl` is the rule: "auto" takes the kernels exactly
+when the batch is packed and the tensors lie on a CUDA device;
+:func:`use_flash_attention` applies it to each call.  A cache (MLA's
+prefill, decode of either kind) always takes the plain path.  The JAX
+package refuses "flash" for MLA (it has no MLA kernel); here it names the
+MLA kernels.
 
 Masking contract (shared with the kernels): attention is allowed iff
 ``segment_ids`` match (padding carries segment 0) AND (causal ⇒ key position
@@ -128,38 +129,43 @@ def _pick_block(s: int, preferred: int = 256) -> int:
 # ------------------------------------------------------------------------------
 
 
-def use_flash_attention(cfg, segments, cache) -> bool:
-    """Route this call through the segment flash kernels?
+def resolve_attn_impl(cfg, *, packed: bool, device) -> str:
+    """Pin ``attn_impl="auto"`` to a concrete route: "flash" (the attention
+    kind's kernels, their plain versions on CPU tensors) exactly when the
+    layout packs segments into rows, the model has attention and the
+    tensors lie on a CUDA ``device``; "xla" (the plain blockwise path)
+    otherwise.  An explicit choice is kept.  The trainer and the launcher
+    pin a run's route with it; :func:`use_flash_attention` reads it for
+    each call."""
+    if cfg.attn_impl != "auto":
+        return cfg.attn_impl
+    return "flash" if packed and cfg.uses_attention and device.type == "cuda" else "xla"
 
-    Only cache-free attention (training, the packed prefill) matches the
-    kernel contract.  "flash" forces the kernel (its plain version on CPU tensors),
-    "xla" forces the plain path, "auto" takes the kernel when the batch is
-    packed and the device is CUDA.
-    """
+
+def resolve_attn_grid(cfg, *, packed: bool, device) -> str:
+    """Pin ``attn_grid="auto"`` to a concrete GQA kernel variant: the pruned
+    kernels exactly when the layout packs segments (the liveness tables are
+    built from them) and the tensors lie on a CUDA ``device``; dense
+    otherwise.  An explicit "pruned" is kept whenever segments exist.
+    ``cfg`` is the model's config or, in ``kernels/ops.resolve_grid``'s
+    per-call form, the request itself."""
+    grid = cfg if isinstance(cfg, str) else cfg.attn_grid
+    if not packed:
+        return "dense"  # no segments -> nothing to build liveness from
+    if grid != "auto":
+        return grid
+    return "pruned" if device.type == "cuda" else "dense"
+
+
+def use_flash_attention(cfg, segments, cache) -> bool:
+    """Route this call through its attention kind's kernels?  Only
+    cache-free attention (training, the packed prefill) matches the
+    kernels' contract; there the route is :func:`resolve_attn_impl`'s, read
+    off the segments' presence and device."""
     if cache is not None:
         return False
-    impl = cfg.attn_impl
-    if impl == "flash":
-        return True
-    if impl == "auto":
-        return segments is not None and segments.device.type == "cuda"
-    return False
-
-
-def use_mla_kernel(cfg, segments, cache) -> bool:
-    """Route this MLA call through the MLA kernels?  Exactly the cache-free
-    packed call on a CUDA device under ``attn_impl="auto"``; "xla" keeps
-    the plain path ("flash" is refused for MLA when the model is built)."""
-    return (cache is None and cfg.attn_impl == "auto" and segments is not None
-            and segments.device.type == "cuda")
-
-
-def resolve_flash_grid(cfg, segments) -> str:
-    """Concrete kernel variant for this call: ``attn_grid`` resolved against
-    segment presence and the device."""
-    from repro_torch.kernels.ops import resolve_grid
-
-    return resolve_grid(cfg.attn_grid, segments)
+    packed = segments is not None
+    return resolve_attn_impl(cfg, packed=packed, device=segments.device if packed else None) == "flash"
 
 
 def _flash_blocks(cfg, s: int, b: int, dtype, has_segments: bool, grid: str, device):
@@ -209,9 +215,11 @@ def warm_flash_blocks(cfg, batch: dict, dtype) -> None:
             and use_flash_attention(cfg, segments, None)):
         return
     inputs = batch["embeds"] if cfg.input_embeds else batch["tokens"]
+    from repro_torch.kernels.ops import resolve_grid
+
     with torch.no_grad():
         _flash_blocks(cfg, inputs.shape[1], inputs.shape[0], dtype, segments is not None,
-                      resolve_flash_grid(cfg, segments), inputs.device)
+                      resolve_grid(cfg.attn_grid, segments), inputs.device)
 
 
 # ------------------------------------------------------------------------------
@@ -281,9 +289,9 @@ def gqa_attention(
         if use_flash_attention(cfg, segments, None):
             # The kernels' row-absolute causal mask plus the segment compare
             # realizes the blockwise path's within-segment objective.
-            from repro_torch.kernels.ops import flash_attention
+            from repro_torch.kernels.ops import flash_attention, resolve_grid
 
-            grid = resolve_flash_grid(cfg, segments)
+            grid = resolve_grid(cfg.attn_grid, segments)
             bq, bkv = _flash_blocks(cfg, s, b, q.dtype, segments is not None, grid, q.device)
             out = flash_attention(q, k, v, segments, cfg.causal, bq, bkv, grid)
         else:
@@ -438,11 +446,12 @@ def mla_attention(
         start = int(cache_index)
         cache.ckv[:, start:start + s] = ckv.to(cache.ckv.dtype)
         cache.k_rope[:, start:start + s] = k_rope.to(cache.k_rope.dtype)
-    if use_mla_kernel(cfg, segments, cache):
+    if use_flash_attention(cfg, segments, cache):
         from repro_torch.kernels.mla_attention import mla_attention as mla_kernel
 
         # The kernels mask causally by absolute row; with the segment compare
-        # that is the plain path's within-segment objective.
+        # that is the plain path's within-segment objective.  They need the
+        # segments: a dense batch under an explicit "flash" raises there.
         out = mla_kernel(torch.cat([q_nope, q_rope], dim=-1), k_nope, k_rope, v, segments, cfg.causal, scale)
     else:
         out = _mla_block_sdpa(q_nope, q_rope, k_nope, k_rope, v, positions, positions, segments, segments,

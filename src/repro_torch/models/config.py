@@ -72,19 +72,23 @@ class ArchConfig:
     remat: str = "full"
 
     # ---- kernel routing ----
-    # Cache-free attention (training, packed prefill): "xla" = the plain
-    # blockwise masked attention in models/attention.py (the name is kept
-    # from the JAX package); "flash" = the hand-written segment flash kernels
-    # (repro_torch.kernels; their plain version on CPU tensors); "auto" =
-    # flash when the batch is packed (segments present) and the tensors lie
-    # on a CUDA device, xla otherwise.  Decode always takes the plain path.
+    # Cache-free attention (training, packed prefill), GQA and MLA alike:
+    # "xla" = the plain blockwise masked attention in models/attention.py
+    # (the name is kept from the JAX package); "flash" = the attention
+    # kind's hand-written kernels (GQA: the segment flash kernels; MLA: the
+    # MLA kernels, which need segments; their plain versions on CPU
+    # tensors); "auto" = flash when the batch is packed (segments present)
+    # and the tensors lie on a CUDA device, xla otherwise
+    # (models/attention.resolve_attn_impl).  A cache takes the plain path.
     attn_impl: Literal["xla", "flash", "auto"] = "auto"
-    # Flash kernel variant: "dense" walks every kv block and skips dead ones;
-    # "pruned" walks only the live blocks listed by the liveness tables;
-    # "auto" = pruned exactly when segments are present on a CUDA device.
-    # Without segments there is no liveness table and every variant is dense.
+    # GQA flash kernel variant: "dense" walks every kv block and skips dead
+    # ones; "pruned" walks only the live blocks listed by the liveness
+    # tables; "auto" = pruned exactly when segments are present on a CUDA
+    # device.  Without segments there is no liveness table and every variant
+    # is dense.  The MLA kernels have one grid, over the liveness tables.
     attn_grid: Literal["dense", "pruned", "auto"] = "auto"
-    # Flash kernel block schedule; 0 = the largest divisor of S ≤ 128.
+    # GQA flash kernel block schedule; 0 = the largest divisor of S ≤ 128.
+    # The MLA kernels take theirs from S (kernels/mla_attention.block_for).
     attn_block_q: int = 0
     attn_block_kv: int = 0
     # Measured per-shape block probe (kernels/autotune.py): the schedule of

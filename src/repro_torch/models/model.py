@@ -148,9 +148,6 @@ class LM(nn.Module):
             raise ValueError(f"attn_impl {cfg.attn_impl!r} not in ('xla', 'flash', 'auto')")
         if cfg.attn_grid not in ("dense", "pruned", "auto"):
             raise ValueError(f"attn_grid {cfg.attn_grid!r} not in ('dense', 'pruned', 'auto')")
-        if cfg.attn_impl == "flash" and cfg.attn_kind == "mla":
-            raise ValueError("attn_impl='flash' requires GQA-layout attention; MLA's latent "
-                             "score decomposition trains on the plain blockwise path")
         if cfg.remat not in REMAT_MODES:
             raise ValueError(f"remat {cfg.remat!r} not in {REMAT_MODES}")
 

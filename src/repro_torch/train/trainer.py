@@ -39,7 +39,7 @@ from repro_torch import obs
 from repro_torch.core.layout import BatchLayout, global_batch_arrays
 from repro_torch.core.loss_scaling import prescaled_loss
 from repro_torch.data.loader import LoaderStep, OnlineDynamicLoader, StagedArrays
-from repro_torch.models.attention import warm_flash_blocks
+from repro_torch.models.attention import resolve_attn_grid, resolve_attn_impl, warm_flash_blocks
 from repro_torch.models.model import LM, shift_labels
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.compression import (
@@ -66,36 +66,6 @@ __all__ = [
     "resolve_attn_impl",
     "staged_arrays",
 ]
-
-
-def resolve_attn_impl(cfg, *, packed: bool, device: torch.device) -> str:
-    """Pin ``attn_impl="auto"`` to a concrete route for one training run:
-    the flash kernels exactly when the layout packs segments into rows, the
-    attention layout is GQA and the tensors lie on a CUDA device; the plain
-    blockwise path otherwise.  MLA has one kernel route, which it takes under
-    "auto" (``models/attention.use_mla_kernel``), so there "auto" stays
-    exactly when the layout is packed and the device CUDA.  An explicit
-    choice is kept."""
-    if cfg.attn_impl != "auto":
-        return cfg.attn_impl
-    kernel = packed and device.type == "cuda"
-    if cfg.attn_kind == "mla":
-        return "auto" if kernel else "xla"
-    if cfg.attn_kind != "gqa":
-        return "xla"
-    return "flash" if kernel else "xla"
-
-
-def resolve_attn_grid(cfg, *, packed: bool, device: torch.device) -> str:
-    """Pin ``attn_grid="auto"``: the pruned kernels exactly when the layout
-    packs segments (the liveness tables are built from them) and the tensors
-    lie on a CUDA device; dense otherwise.  An explicit "pruned" is kept
-    whenever segments exist."""
-    if not packed:
-        return "dense"  # no segments -> nothing to build liveness from
-    if cfg.attn_grid != "auto":
-        return cfg.attn_grid
-    return "pruned" if device.type == "cuda" else "dense"
 
 
 def _warmer(model: LM):
@@ -369,7 +339,8 @@ class Trainer:
 
     def _build_step(self):
         # Pin the "auto" kernel route against the loader's layout and the
-        # model's device, so the route is a recorded property of the run.
+        # model's device (models/attention's rule), so the route is a
+        # recorded property of the run.
         packed = self.loader.layout.needs_segments
         device = self.model.device
         self.attn_impl = resolve_attn_impl(self.model.cfg, packed=packed, device=device)

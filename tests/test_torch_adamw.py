@@ -6,6 +6,7 @@ plain version.  The kernels themselves run only on the card
 
 import bisect
 import math
+import types
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config
-from repro_torch.kernels import adamw
+from repro_torch.kernels import adamw, build, flash_attention, mla_attention, ssd_scan
 from repro_torch.models import LM
 from repro_torch.train import optimizer
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread a module)
@@ -152,25 +153,48 @@ def test_adamw_step_refuses_leaves_off_the_card():
     assert adamw.LAUNCHES == dict.fromkeys(adamw.LAUNCHES, 0)
 
 
-@pytest.mark.parametrize("name", sorted(adamw.LAUNCHES))
-def test_each_launch_is_counted_as_it_is_made(monkeypatch, name):
-    """Every kernel launch adds one to its ``LAUNCHES`` entry and one to
-    ``kernel_adamw_launches_total`` at once; a launch whose CUDA call failed
-    raises and counts in neither."""
-    monkeypatch.setattr(obs.metrics, "_DEFAULT", obs.MetricsRegistry(enabled=True))
-    adamw.reset_launches()
+# The four kernel modules and the registry counter each one feeds, if any.
+LAUNCH_MODULES = {flash_attention: None, mla_attention: "kernel_mla_launches_total",
+                  adamw: "kernel_adamw_launches_total", ssd_scan: None}
+LAUNCH_CASES = [(module, name) for module in LAUNCH_MODULES for name in sorted(module.LAUNCHES)]
 
-    class _Lib:
-        @staticmethod
-        def adamw_error_string(rc):
-            return b"invalid argument"
+
+@pytest.mark.parametrize("module, name", LAUNCH_CASES, ids=[name for _, name in LAUNCH_CASES])
+def test_each_launch_is_counted_as_it_is_made(monkeypatch, module, name):
+    """``kernels/build.launch``, as each kernel module calls it: tensors pass
+    as their addresses, None as a null pointer and the device's current
+    stream last; every launch adds one to its module's ``LAUNCHES`` entry
+    and one to the module's registry counter, if it has one, at once; a
+    launch whose CUDA call failed raises the library's message and counts
+    nowhere."""
+    monkeypatch.setattr(obs.metrics, "_DEFAULT", obs.MetricsRegistry(enabled=True))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=7))
+    for m in LAUNCH_MODULES:
+        m.reset_launches()
+    counter = getattr(module, "_COUNTER", None)
+    assert (counter and counter[0]) == LAUNCH_MODULES[module]
+    calls, rcs = [], iter([0, 0, 0, 1])
+    lib = types.SimpleNamespace(error_string=lambda rc: b"invalid argument",
+                                kernel=lambda *args: calls.append(args) or next(rcs))
+    t = torch.zeros(4)
+
+    def counts():
+        flat = obs.default_registry().flat()
+        return [dict(m.LAUNCHES) for m in LAUNCH_MODULES], [flat.get(c, 0) for c in LAUNCH_MODULES.values() if c]
+
+    def want(k):
+        launches = [{**dict.fromkeys(m.LAUNCHES, 0), **({name: k} if m is module else {})} for m in LAUNCH_MODULES]
+        return launches, [k if c == LAUNCH_MODULES[module] else 0 for c in LAUNCH_MODULES.values() if c]
 
     for k in range(1, 4):
-        adamw._launched(0, _Lib, name)
-        assert adamw.LAUNCHES == {**dict.fromkeys(adamw.LAUNCHES, 0), name: k}
-        assert obs.default_registry().flat()["kernel_adamw_launches_total"] == k
+        build.launch(lib, "kernel", 3, t, None, 2.5, device=torch.device("cuda"), launches=module.LAUNCHES,
+                     name=name, counter=counter)
+        args = calls[-1]
+        assert args[0] == 3 and args[3] == 2.5
+        assert [a.value for a in (args[1], args[2], args[4])] == [t.data_ptr(), None, 7]
+        assert counts() == want(k)
     with pytest.raises(RuntimeError, match=f"{name}: CUDA error 1 \\(invalid argument\\)"):
-        adamw._launched(1, _Lib, name)
-    assert adamw.LAUNCHES[name] == 3
-    assert obs.default_registry().flat()["kernel_adamw_launches_total"] == 3
-    adamw.reset_launches()
+        build.launch(lib, "kernel", device=torch.device("cuda"), launches=module.LAUNCHES, name=name,
+                     counter=counter)
+    assert counts() == want(3)
+    module.reset_launches()

@@ -49,6 +49,7 @@ from repro_torch.train.trainer import (
     TrainerConfig,
     assemble_model_batch,
     make_train_step,
+    resolve_attn_impl,
     staged_arrays,
 )
 
@@ -264,10 +265,11 @@ def _moe_forward_on_card_matches_cpu(arch: str, dtype: str, monkeypatch) -> None
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
     if cfg.attn_kind == "mla":  # MLA on its plain path on both sides: the smoke's widths are not the kernels'
         cfg = dataclasses.replace(cfg, attn_impl="xla")
-    # The kernels' plain versions on the CPU: padding rows attend to nothing
-    # on both sides, so padding tokens route alike and take the same capacity.
-    flash = "flash" if cfg.attn_kind == "gqa" else cfg.attn_impl
-    cpu_model = LM(dataclasses.replace(cfg, attn_impl=flash), device="cpu")
+    # The CPU takes the route the card resolves, so GQA runs the kernels'
+    # plain versions there: padding rows attend to nothing on both sides, so
+    # padding tokens route alike and take the same capacity.
+    route = resolve_attn_impl(cfg, packed=True, device=torch.device("cuda"))
+    cpu_model = LM(dataclasses.replace(cfg, attn_impl=route), device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     card_model = LM(cfg)
     card_params = card_model.load_params(_to(cpu_params, card_model.device))

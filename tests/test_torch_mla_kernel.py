@@ -206,31 +206,87 @@ def test_inputs_the_kernels_refuse(fault):
 # ------------------------------------------------------------------------------
 
 
-def test_use_mla_kernel_rule():
-    """The kernels exactly for the cache-free packed call on a CUDA device
-    under "auto"; the device is read from the segments."""
-    auto, xla = SMOKE, dataclasses.replace(SMOKE, attn_impl="xla")
+ROUTE_CONFIGS = {"gqa": get_smoke_config("qwen3_0_6b"), "mla": SMOKE}
+
+
+@pytest.mark.parametrize("kind", list(ROUTE_CONFIGS))
+def test_use_flash_attention_rule(kind):
+    """One rule for both attention kinds: the kernels exactly for the
+    cache-free packed call on a CUDA device under "auto"; "xla", a cache
+    (prefill or decode), CPU segments and a dense batch keep the plain path;
+    "flash" takes the kernels (their plain versions on CPU tensors) wherever
+    there is no cache.  The device is read from the segments."""
+    cfg = ROUTE_CONFIGS[kind]
+    auto = dataclasses.replace(cfg, attn_impl="auto")
+    xla, flash = (dataclasses.replace(cfg, attn_impl=impl) for impl in ("xla", "flash"))
     on_card = types.SimpleNamespace(device=torch.device("cuda"))
     on_cpu = torch.zeros((1, 8), dtype=torch.int32)
-    assert attention.use_mla_kernel(auto, on_card, None)
-    assert not attention.use_mla_kernel(xla, on_card, None)
-    assert not attention.use_mla_kernel(auto, on_card, object())  # a cache: prefill or decode
-    assert not attention.use_mla_kernel(auto, on_cpu, None)
-    assert not attention.use_mla_kernel(auto, None, None)
+    assert attention.use_flash_attention(auto, on_card, None)
+    assert not attention.use_flash_attention(xla, on_card, None)
+    assert not attention.use_flash_attention(auto, on_card, object())  # a cache: prefill or decode
+    assert not attention.use_flash_attention(flash, on_card, object())
+    assert not attention.use_flash_attention(auto, on_cpu, None)
+    assert not attention.use_flash_attention(auto, None, None)
+    assert attention.use_flash_attention(flash, on_cpu, None)
+    assert attention.use_flash_attention(flash, None, None)
 
 
 def test_resolve_attn_impl_keeps_auto_for_mla():
-    """The trainer's pin leaves MLA on "auto" exactly where the kernels run
-    (packed, CUDA), else "xla"; GQA's pin and explicit choices are kept."""
+    """The trainer's pin is one rule for both attention kinds: "flash"
+    exactly where the kernels run (packed, CUDA), else "xla"; "xla" for a
+    model without attention; an explicit choice is kept; "auto" is never
+    returned."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert resolve_attn_impl(SMOKE, packed=True, device=cuda) == "auto"
-    assert resolve_attn_impl(SMOKE, packed=False, device=cuda) == "xla"
-    assert resolve_attn_impl(SMOKE, packed=True, device=cpu) == "xla"
-    assert resolve_attn_impl(dataclasses.replace(SMOKE, attn_impl="xla"), packed=True, device=cuda) == "xla"
     gqa = get_smoke_config("qwen3_0_6b")
-    assert resolve_attn_impl(gqa, packed=True, device=cuda) == "flash"
-    assert resolve_attn_impl(gqa, packed=True, device=cpu) == "xla"
+    for cfg in (SMOKE, gqa):
+        assert resolve_attn_impl(cfg, packed=True, device=cuda) == "flash"
+        assert resolve_attn_impl(cfg, packed=False, device=cuda) == "xla"
+        assert resolve_attn_impl(cfg, packed=True, device=cpu) == "xla"
+        for impl in ("xla", "flash"):
+            pinned = dataclasses.replace(cfg, attn_impl=impl)
+            assert resolve_attn_impl(pinned, packed=True, device=cuda) == impl
+            assert resolve_attn_impl(pinned, packed=False, device=cpu) == impl
     assert resolve_attn_impl(get_smoke_config("mamba2_130m"), packed=True, device=cuda) == "xla"  # no attention
+
+
+def test_flash_mla_model_takes_the_plain_version_on_cpu(monkeypatch):
+    """``LM`` takes ``attn_impl="flash"`` for MLA: on CPU tensors every
+    layer runs the kernels' plain version (``mla_attention_ref``), launches
+    nothing, and ``LM.forward`` equals the "xla" route's (``_mla_block_sdpa``)
+    at fp32's 2e-5 on rows packed without padding."""
+    obs.default_registry().reset()
+    mk.reset_launches()
+    rng = np.random.default_rng(6)
+    b, s = 2, 32
+    seg = torch.from_numpy(np.repeat(np.array([[1] * 10 + [2] * 12 + [3] * 10]), b, axis=0).astype(np.int32))
+    pos = torch.from_numpy(np.concatenate([np.arange(10), np.arange(12), np.arange(10)])[None].repeat(b, 0)
+                           .astype(np.int32))
+    batch = dict(tokens=torch.from_numpy(rng.integers(1, SMOKE.vocab_size, (b, s))), positions=pos, segments=seg)
+    logits = {}
+    for impl in ("xla", "flash"):
+        model = LM(dataclasses.replace(SMOKE, attn_impl=impl), device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        calls = []
+        plain = mk.mla_attention_ref
+        monkeypatch.setattr(mk, "mla_attention_ref", lambda *a, **k: calls.append(1) or plain(*a, **k))
+        with torch.no_grad():
+            logits[impl] = model.forward(params, batch)
+        monkeypatch.setattr(mk, "mla_attention_ref", plain)
+        assert len(calls) == (SMOKE.n_layers if impl == "flash" else 0)
+    assert all(n == 0 for n in mk.LAUNCHES.values())
+    assert "kernel_mla_launches_total" not in obs.default_registry().flat()
+    assert _close(logits["flash"], logits["xla"], FP32_TOL), (logits["flash"] - logits["xla"]).abs().max().item()
+
+
+def test_flash_mla_without_segments_raises():
+    """An explicit "flash" on a dense MLA batch raises the MLA wrapper's
+    segment check: the kernels need segments, and there is no dense MLA
+    kernel path."""
+    model = LM(dataclasses.replace(SMOKE, attn_impl="flash"), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(1, SMOKE.vocab_size, (1, 16)))
+    with pytest.raises(ValueError, match=r"segment_ids must be \(B, S\) int32"):
+        model.forward(params, dict(tokens=tokens))
 
 
 @pytest.mark.parametrize("route", ["auto-cpu", "xla", "prefill-cache"])
